@@ -1,0 +1,275 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from `hm16_2_tpu_torch/csrc`, holds each
+against its plain PyTorch version on the card at the shapes of a 1920x1080
+all-intra frame, then drives the port's all-intra encoder (HM's common-test
+All Intra Main configuration: QP 32, 8-bit 4:2:0, deblocking, SAO, MD5
+picture hash) over three 1080p frames through `Encoder.encode_stream`,
+decodes the stream and checks every picture hash, checks the per-frame
+entry `encode_frame`, and checks a small encode on the card against the
+same encode on the CPU (whose plain path the tests hold to the JAX
+reference).  Every failure raises; the last line of standard output is the
+device JSON.  Needs a CUDA device and exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+W, H, QP = 1920, 1080, 32
+
+
+def _frames(w, h, n):
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from make_fixtures import make_yuv
+    return make_yuv(w, h, n, seed=42)
+
+
+def _card_line():
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return r.stdout.strip().splitlines()[0] if r.returncode == 0 else \
+        f"nvidia-smi failed: {r.stderr.strip()}"
+
+
+def _cuda_ms(fn, reps):
+    fn()                                        # warm-up
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _compare(name, got, want):
+    """Exact equality of every output tensor; returns the max abs error."""
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if g is None and w is None:
+            continue
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}[{i}]: {g.shape}/{g.dtype} vs "
+                                 f"{w.shape}/{w.dtype}")
+        if g.numel():
+            err = max(err, float((g.double() - w.double()).abs().max()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}[{i}]: kernel differs from the plain "
+                                 f"version (max abs err {err})")
+    return err
+
+
+def check_kernels(frame, dev, reps=5):
+    """Each kernel against its plain version at the shapes one frame's plan
+    gives it.  Returns {kernel: {"err", "ms", "plain_ms"}} summed over its
+    cases."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import intra_rd as R
+
+    H, W = frame[0].shape
+    y, cb, cr = (torch.from_numpy(p.astype("int32")).to(dev) for p in frame)
+    lam = 0.57 * 2.0 ** ((QP - 12) / 3.0)
+    cw, cqp = 2.0 ** ((QP - 31) / 3.0), 31
+    stats = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in K.LAUNCHES}
+
+    def case(kernel, label, run_k, run_p):
+        got, want = run_k(), run_p()
+        err = _compare(f"{kernel} {label}", got, want)
+        ms, pms = _cuda_ms(run_k, reps), _cuda_ms(run_p, reps)
+        st = stats[kernel]
+        st["err"] = max(st["err"], err)
+        st["ms"] += ms
+        st["plain_ms"] += pms
+        print(f"kernel {kernel:14s} {label:28s} equal  "
+              f"kernel {ms:9.3f} ms  plain {pms:9.3f} ms", flush=True)
+        return got
+
+    luma, chroma = {}, {}
+    for s in (4, 8, 16, 32):
+        luma[s] = case("ref_buffers", f"luma s={s}",
+                       lambda: K.ref_buffers(y, s, 8, True, H, W),
+                       lambda: R._ref_buffers_plain(y, s, 8, True, H, W))
+    for cs in (4, 8, 16):
+        chroma[cs] = case(
+            "ref_buffers", f"chroma s={cs}",
+            lambda: K.ref_buffers(cb, cs, 8, False, H // 2, W // 2),
+            lambda: R._ref_buffers_plain(cb, cs, 8, False, H // 2, W // 2))
+    crb = {cs: R._ref_buffers_plain(cr, cs, 8, False, H // 2, W // 2)
+           for cs in (4, 8, 16)}
+
+    rd = {}
+    for s in (4, 8, 16, 32):
+        bufs, blocks = luma[s]
+        k = R.NUM_RD_CANDS[s]
+        args = (bufs, blocks, float(lam), s, 8, k, QP, True, s == 4, s == 32)
+        rd[s] = case("intra_size_rd", f"luma s={s} k={k}"
+                     + (" +satd" if s == 32 else ""),
+                     lambda: K.intra_size_rd(*args),
+                     lambda: R._size_rd_plain(*args))
+        case("intra_size_rd", f"satd-only s={s}",
+             lambda: K.intra_premodes(bufs, blocks, s, 8),
+             lambda: R._premodes_plain(bufs, blocks, s, 8))
+
+    nby, nbx = {}, {}
+    for s in (4, 8, 16, 32, 64):
+        nby[s], nbx[s] = H // s, W // s
+    db = {}
+    for s in (8, 16, 32):
+        cs = s // 2
+        modes5 = case("plan_dp", f"chroma modes s={s}",
+                      lambda: K.chroma_modes5(rd[s][0]),
+                      lambda: R._chroma_modes5_plain(rd[s][0]))
+        out = []
+        for label, (bufs, blocks) in (("cb", chroma[cs]), ("cr", crb[cs])):
+            out += case("intra_cand_rd", f"chroma {label} s={cs} K=5",
+                        lambda: K.intra_cand_rd(bufs, blocks, modes5, cs, 8,
+                                                cqp, False, False),
+                        lambda: R._cand_rd_plain(bufs, blocks, modes5, cs, 8,
+                                                 cqp, False, False))
+        db[s] = out
+    folds = {}
+    for s in (8, 16, 32):
+        cost = rd[s][1].reshape(nby[s], nbx[s])
+        folds[s] = case("plan_dp", f"chroma fold s={s}",
+                        lambda: K.chroma_fold(*db[s], cost, lam, cw),
+                        lambda: R._chroma_fold_plain(*db[s], cost, lam, cw))
+    satd32 = rd[32][3].reshape(nby[32], nbx[32], 35)
+    m64, pm64 = case("plan_dp", "mode64",
+                     lambda: K.mode64(satd32, nby[64], nbx[64]),
+                     lambda: R._mode64_plain(satd32, nby[64], nbx[64]))
+    idx = torch.as_tensor([(i * nbx[32] + j) for i in range(2 * nby[64])
+                           for j in range(2 * nbx[64])], device=dev)
+    b32, bl32 = luma[32][0][idx], luma[32][1][idx]
+    d64, b64 = case("intra_cand_rd", "64x64 level s=32 K=1",
+                    lambda: K.intra_cand_rd(b32, bl32, pm64[:, None], 32, 8,
+                                            QP, True, False),
+                    lambda: R._cand_rd_plain(b32, bl32, pm64[:, None], 32, 8,
+                                             QP, True, False))
+    mode_s = {s: rd[s][0].reshape(nby[s], nbx[s]) for s in (4, 8, 16, 32)}
+    cost_s = {4: rd[4][1].reshape(nby[4], nbx[4])}
+    cost_s.update({s: folds[s][0] for s in (8, 16, 32)})
+    cand_s = {s: rd[s][2].reshape(nby[s], nbx[s], 3) for s in (4, 8, 16, 32)}
+    cmode_s = {s: folds[s][2] for s in (8, 16, 32)}
+    dp_args = (lam, H, W, mode_s, cost_s, cand_s, cmode_s, folds[32][1],
+               d64[:, 0].contiguous(), b64[:, 0].contiguous(), m64)
+    case("plan_dp", "DP + packed plan", lambda: K.plan_dp(*dp_args),
+         lambda: R._plan_dp_plain(*dp_args))
+    return stats
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                         "is False)")
+    sys.path.insert(0, ROOT)
+    from hm16_2_tpu import native
+    from hm16_2_tpu.decode.top import Decoder
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
+
+    print(_card_line(), flush=True)
+    name = torch.cuda.get_device_name(0)
+    print(f"device {name}  torch {torch.__version__}  cuda "
+          f"{torch.version.cuda}", flush=True)
+    path, secs = K.build()
+    print(f"kernels built in {secs:.1f} s: {os.path.relpath(path, ROOT)}",
+          flush=True)
+    if native.get_lib() is None or native.get_dsp() is None:
+        raise AssertionError("native commit engine did not build")
+
+    t0 = time.perf_counter()
+    frames = [[p.copy() for p in f] for f in _frames(W, H, 4)]
+    print(f"frames {W}x{H} made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    dev = torch.device("cuda")
+    stats = check_kernels(frames[0], dev)
+
+    # the slice: warm-up frame, then a timed 3-frame encode_stream
+    from hm16_2_tpu_torch.encode.intra_rd import fetch_plan
+    cfg = lambda: EncoderConfig(W, H, qp=QP, intra_period=1)
+    warm = Encoder(cfg(), dev)
+    list(warm.encode_stream(frames[3:4]))
+    planes = [p.astype("int32") for p in frames[3]]
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fetch_plan(warm._submit_plan(planes), H, W)
+    print(f"frame plan alone (upload, kernels, packed plan back): "
+          f"{(time.perf_counter() - t0) / 5 * 1e3:.3f} ms per frame",
+          flush=True)
+    enc = Encoder(cfg(), dev)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    aus = list(enc.encode_stream(frames[:3]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    print(f"encode_stream {W}x{H} AI QP{QP}: 3 frames in {wall:.3f} s = "
+          f"{3 / wall:.3f} fps; bytes {[len(a) for a in aus]}", flush=True)
+    print("stage_ms per frame: " + json.dumps(
+        {k: round(v / 3, 3) for k, v in enc.stage_ms.items()}), flush=True)
+    print(f"launches {json.dumps(launches)}", flush=True)
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched by the encode: {idle}")
+    t0 = time.perf_counter()
+    pics = Decoder().decode_stream(b"".join(aus))
+    print(f"decoded {len(pics)} pictures in {time.perf_counter() - t0:.1f} s,"
+          f" hash_ok {[p.hash_ok for p in pics]}", flush=True)
+    if len(pics) != 3 or not all(p.hash_ok is True for p in pics):
+        raise AssertionError("decoded picture hash mismatch")
+
+    au0 = Encoder(cfg(), dev).encode_frame(
+        [p.astype("int32") for p in frames[0]], 0)
+    if au0 != aus[0]:
+        raise AssertionError("encode_frame differs from encode_stream's AU 0")
+    print("encode_frame(frame 0) equals encode_stream AU 0", flush=True)
+
+    small = _frames(136, 72, 3)
+    cfg_s = lambda: EncoderConfig(136, 72, qp=QP, intra_period=1)
+    on_card = list(Encoder(cfg_s(), dev).encode_stream(small))
+    on_cpu = list(Encoder(cfg_s(), torch.device("cpu")).encode_stream(small))
+    if on_card != on_cpu:
+        raise AssertionError("136x72 encode on the card differs from the CPU")
+    print("136x72 3-frame encode: card bytes equal CPU plain-path bytes",
+          flush=True)
+
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    print("jax not imported", flush=True)
+
+    srcs = {"ref_buffers": ("ref_buffers.cu",
+                            "hm16_2_tpu/encode/intra_rd.py:317"),
+            "intra_size_rd": ("intra_rd.cu",
+                              "hm16_2_tpu/encode/intra_rd.py:172"),
+            "intra_cand_rd": ("intra_rd.cu",
+                              "hm16_2_tpu/encode/intra_rd.py:212"),
+            "plan_dp": ("plan_dp.cu", "hm16_2_tpu/encode/intra_rd.py:377")}
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda",
+         "source": f"hm16_2_tpu_torch/csrc/{srcs[k][0]}",
+         "replaces": srcs[k][1], "launches": launches[k],
+         "max_abs_err": stats[k]["err"], "ms": stats[k]["ms"],
+         "plain_ms": stats[k]["plain_ms"]} for k in K.LAUNCHES]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

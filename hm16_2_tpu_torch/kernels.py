@@ -1,0 +1,433 @@
+"""The port's hand-written CUDA kernels: build, bindings and launch counts.
+
+Sources live in `csrc/`; they are compiled at first use by `nvcc` for
+Hopper (`sm_90a`) into one shared library with a plain C interface, cached
+in `_build/` under a hash of the sources and flags, and bound with ctypes.
+Every launch goes on PyTorch's current stream and allocates nothing itself:
+the functions here allocate outputs with torch, check device, dtype, shape
+and contiguity, launch, and raise if `cudaGetLastError()` is not 0.
+
+    K1 ref_buffers    csrc/ref_buffers.cu
+    K2 intra_size_rd  csrc/intra_rd.cu   (also SATD-only for _premodes)
+    K3 intra_cand_rd  csrc/intra_rd.cu
+    K4 plan_dp        csrc/plan_dp.cu    (chroma fold, 64x64 level, DP,
+                                          emission: several launches)
+
+`LAUNCHES` counts kernel launches per kernel; the counts grow only where a
+kernel is launched.  Nothing here runs at import: `nvcc` is looked up and
+run on the first launch (or an explicit `build()`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from hm16_2_tpu.common.tables import ANG_TABLE, DCT, DST4, INV_ANG_TABLE, \
+    INV_QUANT_SCALES, QUANT_SCALES
+from hm16_2_tpu.ops.intra_ref import should_filter
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_DIR, "csrc")
+_BUILD = os.path.join(_DIR, "_build")
+_SOURCES = ("ref_buffers.cu", "intra_rd.cu", "plan_dp.cu")
+_HEADERS = ("intra_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES = {"ref_buffers": 0, "intra_size_rd": 0, "intra_cand_rd": 0,
+            "plan_dp": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class TqParams(ctypes.Structure):
+    """hm::TqParams (csrc/intra_common.cuh)."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "s", "log2", "bd", "maxv", "edge", "fwd_s1", "fwd_s2", "q_scale",
+        "q_bits", "q_add", "dq_scale", "dq_shift", "dq_min", "dq_max",
+        "inv_s2")] + [("filt", ctypes.c_ulonglong)]
+
+
+class PlanGrids(ctypes.Structure):
+    """hm::PlanGrids (csrc/plan_dp.cu)."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "h4", "w4", "nby4", "nbx4", "nby8", "nbx8", "nby16", "nbx16",
+        "nby32", "nbx32", "nby64", "nbx64")] + [(n, ctypes.c_void_p) for n in (
+            "c64", "split32", "split16", "nxn", "mode4", "mode8", "mode16",
+            "mode32", "mode64", "cand4", "cand8", "cand16", "cand32",
+            "cmode8", "cmode16", "cmode32")]
+
+
+_lib = None
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit")
+    return path
+
+
+def _library_path():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES + _HEADERS:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(_BUILD, f"libhm16_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build():
+    """Compile the kernels if the cached library is missing; returns
+    (library path, seconds spent compiling)."""
+    out = _library_path()
+    if os.path.exists(out):
+        return out, 0.0
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[os.path.join(_CSRC, s) for s in _SOURCES]]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + r.stdout + r.stderr)
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(build()[0])
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sigs = {
+        "hm_ref_buffers": [P, I, I, I, I, I, I, I, P, P, P],
+        "hm_intra_size_rd": [P, P, I, ctypes.POINTER(TqParams), P, P, P, F,
+                             I, I, P, P, P, P, P],
+        "hm_intra_cand_rd": [P, P, P, I, I, ctypes.POINTER(TqParams), P, P,
+                             P, P, P, P],
+        "hm_chroma_modes5": [P, I, I, I, I, I, P, P],
+        "hm_chroma_fold": [P, P, P, P, P, P, I, F, F, P, P, P, P],
+        "hm_mode64": [P, I, I, I, P, P, P],
+        "hm_cost64": [P, P, P, I, I, I, F, F, P, P],
+        "hm_dp_level": [P, I, P, I, I, F, F, I, P, P, P],
+        "hm_emit_plan": [ctypes.POINTER(PlanGrids), P, P],
+    }
+    for name, args in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.hm_error_string.argtypes = [ctypes.c_int]
+    lib.hm_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def _launch(kernel, name, *args):
+    lib = _load()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}: "
+                           f"{lib.hm_error_string(rc).decode()}")
+    LAUNCHES[kernel] += 1
+
+
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _need(t, dtype, shape=None, name="tensor"):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# constant tables on the device
+# ---------------------------------------------------------------------------
+
+_tables = {}
+
+
+def _device_tables(device):
+    """Transform matrices, angle tables and the bits-model constants as
+    device tensors (built once per device from the reference's tables)."""
+    key = str(device)
+    if key not in _tables:
+        from hm16_2_tpu_torch.encode import intra_rd as R
+        i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                        device=device)
+        model = np.concatenate([
+            R.LN_LAST, [R.LOG2E],
+            [R.BITS_COEF[k] for k in ("nzc", "nnz", "gt1", "esc", "last",
+                                      "cgs")],
+            [R.BITS_CONST, R.BITS_EMPTY, R.BITS_FLOOR,
+             R.LUMA_MODE_BITS]]).astype(np.float32)
+        _tables[key] = {
+            "dct": {s: i32(DCT[s]) for s in (4, 8, 16, 32)},
+            "dst4": i32(DST4),
+            "ang": i32(np.concatenate([ANG_TABLE, INV_ANG_TABLE])),
+            "model": torch.as_tensor(model, device=device),
+            "chroma_bits": torch.as_tensor(
+                np.asarray(R.CHROMA_MODE_BITS, np.float32), device=device),
+        }
+    return _tables[key]
+
+
+def _tq_params(s, bd, qp, is_luma):
+    """The transform chain's constants for one size (hm::TqParams)."""
+    log2 = s.bit_length() - 1
+    per, rem = qp // 6, qp % 6
+    tshift = 15 - bd - log2
+    q_bits = 14 + per + tshift
+    dq_shift = 6 - (tshift + per)
+    target_bd = min(16, 32 + dq_shift - 7)
+    filt = 0
+    for m in range(35):
+        if should_filter(m, s, is_luma):
+            filt |= 1 << m
+    return TqParams(
+        s=s, log2=log2, bd=bd, maxv=(1 << bd) - 1,
+        edge=int(is_luma and s <= 16), fwd_s1=log2 - 1 + bd - 8,
+        fwd_s2=log2 + 6, q_scale=int(QUANT_SCALES[rem]), q_bits=q_bits,
+        q_add=171 << (q_bits - 9), dq_scale=int(INV_QUANT_SCALES[rem]),
+        dq_shift=dq_shift, dq_min=-(1 << (target_bd - 1)),
+        dq_max=(1 << (target_bd - 1)) - 1, inv_s2=20 - bd, filt=filt)
+
+
+def _tmat(tabs, s, use_dst):
+    return tabs["dst4"] if (use_dst and s == 4) else tabs["dct"][s]
+
+
+# ---------------------------------------------------------------------------
+# K1
+# ---------------------------------------------------------------------------
+
+def ref_buffers(plane, s, bd, strong, h, w):
+    ph, pw = plane.shape
+    _need(plane, torch.int32, name="plane")
+    nby, nbx = h // s, w // s
+    if s not in (4, 8, 16, 32) or nby * s > ph or nbx * s > pw:
+        raise ValueError(f"ref_buffers: bad size s={s} for {h}x{w} in a "
+                         f"{ph}x{pw} plane")
+    n = nby * nbx
+    bufs = torch.empty((n, 2, 4 * s + 1), dtype=torch.int32,
+                       device=plane.device)
+    blocks = torch.empty((n, s, s), dtype=torch.int32, device=plane.device)
+    if n:
+        _launch("ref_buffers", "hm_ref_buffers", _ptr(plane), ph, pw, s, bd,
+                int(bool(strong)), nby, nbx, _ptr(bufs), _ptr(blocks),
+                _stream(plane))
+    return bufs, blocks
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3
+# ---------------------------------------------------------------------------
+
+def _need_blocks(bufs, blocks, s):
+    n = bufs.shape[0]
+    _need(bufs, torch.int32, (n, 2, 4 * s + 1), "bufs")
+    _need(blocks, torch.int32, (n, s, s), "blocks")
+    if s not in (4, 8, 16, 32) or n == 0:
+        raise ValueError(f"bad block size {s} or empty batch")
+    return n
+
+
+def intra_size_rd(bufs, blocks, lam, s, bd, k, qp, is_luma, use_dst,
+                  want_satd):
+    n = _need_blocks(bufs, blocks, s)
+    if not 3 <= k <= 4:
+        raise ValueError(f"intra_size_rd: k={k} outside 3..4")
+    dev = bufs.device
+    tabs = _device_tables(dev)
+    p = _tq_params(s, bd, qp, is_luma)
+    mode = torch.empty(n, dtype=torch.int32, device=dev)
+    cost = torch.empty(n, dtype=torch.float32, device=dev)
+    top3 = torch.empty((n, 3), dtype=torch.int32, device=dev)
+    satd = torch.empty((n, 35), dtype=torch.int32, device=dev) \
+        if want_satd else None
+    _launch("intra_size_rd", "hm_intra_size_rd", _ptr(bufs), _ptr(blocks),
+            n, ctypes.byref(p), _ptr(_tmat(tabs, s, use_dst)),
+            _ptr(tabs["ang"]), _ptr(tabs["model"]), float(np.float32(lam)),
+            k, int(bool(want_satd)), _ptr(mode), _ptr(cost), _ptr(top3),
+            _ptr(satd), _stream(bufs))
+    return mode, cost, top3, satd
+
+
+def intra_premodes(bufs, blocks, s, bd):
+    n = _need_blocks(bufs, blocks, s)
+    dev = bufs.device
+    tabs = _device_tables(dev)
+    p = _tq_params(s, bd, 0, True)
+    mode = torch.empty(n, dtype=torch.int32, device=dev)
+    _launch("intra_size_rd", "hm_intra_size_rd", _ptr(bufs), _ptr(blocks),
+            n, ctypes.byref(p), _ptr(_tmat(tabs, s, False)),
+            _ptr(tabs["ang"]), _ptr(tabs["model"]), 0.0, 0, 0, _ptr(mode),
+            None, None, None, _stream(bufs))
+    return mode
+
+
+def intra_cand_rd(bufs, blocks, modes, s, bd, qp, is_luma, use_dst):
+    n = _need_blocks(bufs, blocks, s)
+    kk = modes.shape[1]
+    _need(modes, torch.int32, (n, kk), "modes")
+    dev = bufs.device
+    tabs = _device_tables(dev)
+    p = _tq_params(s, bd, qp, is_luma)
+    dist = torch.empty((n, kk), dtype=torch.float32, device=dev)
+    bits = torch.empty((n, kk), dtype=torch.float32, device=dev)
+    _launch("intra_cand_rd", "hm_intra_cand_rd", _ptr(bufs), _ptr(blocks),
+            _ptr(modes), n, kk, ctypes.byref(p),
+            _ptr(_tmat(tabs, s, use_dst)), _ptr(tabs["ang"]),
+            _ptr(tabs["model"]), _ptr(dist), _ptr(bits), _stream(bufs))
+    return dist, bits
+
+
+# ---------------------------------------------------------------------------
+# K4
+# ---------------------------------------------------------------------------
+
+def chroma_modes5(dm):
+    from hm16_2_tpu_torch.encode.intra_rd import CHROMA_BASE_MODES
+    n = dm.shape[0]
+    _need(dm, torch.int32, (n,), "dm")
+    out = torch.empty((n, 5), dtype=torch.int32, device=dm.device)
+    _launch("plan_dp", "hm_chroma_modes5", _ptr(dm), n, *CHROMA_BASE_MODES,
+            _ptr(out), _stream(dm))
+    return out
+
+
+def chroma_fold(d_cb, b_cb, d_cr, b_cr, cost, lam, cw):
+    n = cost.numel()
+    _need(cost, torch.float32, name="cost")
+    for name, t in (("d_cb", d_cb), ("b_cb", b_cb), ("d_cr", d_cr),
+                    ("b_cr", b_cr)):
+        _need(t, torch.float32, (n, 5), name)
+    tabs = _device_tables(cost.device)
+    cost_out = torch.empty_like(cost)
+    add = torch.empty_like(cost)
+    cmode = torch.empty(cost.shape, dtype=torch.int32, device=cost.device)
+    _launch("plan_dp", "hm_chroma_fold", _ptr(d_cb), _ptr(b_cb), _ptr(d_cr),
+            _ptr(b_cr), _ptr(cost), _ptr(tabs["chroma_bits"]), n,
+            float(np.float32(lam)), float(np.float32(cw)), _ptr(cost_out),
+            _ptr(add), _ptr(cmode), _stream(cost))
+    return cost_out, add, cmode
+
+
+def mode64(satd32, nby64, nbx64):
+    nby32, nbx32 = satd32.shape[:2]
+    _need(satd32, torch.int32, (nby32, nbx32, 35), "satd32")
+    if 2 * nby64 > nby32 or 2 * nbx64 > nbx32:
+        raise ValueError("mode64: 64x64 grid larger than the TU32 grid")
+    dev = satd32.device
+    m64 = torch.empty((nby64, nbx64), dtype=torch.int32, device=dev)
+    pm64 = torch.empty(4 * nby64 * nbx64, dtype=torch.int32, device=dev)
+    _launch("plan_dp", "hm_mode64", _ptr(satd32), nbx32, nby64, nbx64,
+            _ptr(m64), _ptr(pm64), _stream(satd32))
+    return m64, pm64
+
+
+def plan_dp(lam, h, w, mode_s, cost_s, cand_s, cmode_s, chroma_add32, d64,
+            b64, mode64_g):
+    from hm16_2_tpu_torch.encode.intra_rd import NXN_OVERHEAD_BITS, \
+        SPLIT_OVERHEAD_BITS
+    dev = cost_s[4].device
+    lamf = float(np.float32(lam))
+    shape_s = {s: (h // s, w // s) for s in (4, 8, 16, 32, 64)}
+    for s in (4, 8, 16, 32):
+        _need(cost_s[s], torch.float32, shape_s[s], f"cost{s}")
+        _need(mode_s[s], torch.int32, shape_s[s], f"mode{s}")
+        _need(cand_s[s], torch.int32, shape_s[s] + (3,), f"cand{s}")
+    st = _stream(cost_s[4])
+    nby64, nbx64 = shape_s[64]
+    nby32, nbx32 = shape_s[32]
+    u8 = lambda hh, ww: torch.empty((hh, ww), dtype=torch.uint8, device=dev)
+
+    cost64 = None
+    if d64 is not None:
+        _need(d64, torch.float32, (4 * nby64 * nbx64,), "d64")
+        _need(b64, torch.float32, (4 * nby64 * nbx64,), "b64")
+        if chroma_add32 is not None:
+            _need(chroma_add32, torch.float32, shape_s[32], "chroma_add32")
+        cost64 = torch.empty((nby64, nbx64), dtype=torch.float32, device=dev)
+        _launch("plan_dp", "hm_cost64", _ptr(d64), _ptr(b64),
+                _ptr(chroma_add32), nbx32, nby64, nbx64, lamf, 8.0,
+                _ptr(cost64), st)
+
+    def level(child, parent, ovh):
+        hp, wp = parent.shape
+        flag = u8(hp, wp)
+        out = torch.empty_like(parent)
+        _launch("plan_dp", "hm_dp_level", _ptr(child), child.shape[1],
+                _ptr(parent), hp, wp, lamf, ovh, 0, _ptr(flag), _ptr(out),
+                st)
+        return flag, out
+
+    nxn = split16 = split32 = c64 = None
+    cu8 = cost_s[8]
+    if shape_s[8][0] and cost_s[4].numel() and cu8.numel():
+        nxn, cu8 = level(cost_s[4], cu8, NXN_OVERHEAD_BITS)
+    cu16 = cost_s[16]
+    if shape_s[16][0] and cu8.numel() and cu16.numel():
+        split16, cu16 = level(cu8, cu16, SPLIT_OVERHEAD_BITS)
+    cu32 = cost_s[32]
+    if nby32 and cu16.numel() and cu32.numel():
+        split32, cu32 = level(cu16, cu32, SPLIT_OVERHEAD_BITS)
+    if cost64 is not None:
+        c64 = u8(nby64, nbx64)
+        _launch("plan_dp", "hm_dp_level", _ptr(cu32), nbx32, _ptr(cost64),
+                nby64, nbx64, lamf, SPLIT_OVERHEAD_BITS, 1, _ptr(c64), None,
+                st)
+
+    h4, w4 = h // 4, w // 4
+    g = PlanGrids(h4=h4, w4=w4)
+    for s in (4, 8, 16, 32, 64):
+        setattr(g, f"nby{s}", shape_s[s][0])
+        setattr(g, f"nbx{s}", shape_s[s][1])
+    keep = []                     # tensors whose pointers the struct holds
+
+    def put(field, t):
+        if t is not None and t.numel():
+            keep.append(t)
+            setattr(g, field, t.data_ptr())
+
+    put("c64", c64)
+    put("split32", split32)
+    put("split16", split16)
+    put("nxn", nxn)
+    for s in (4, 8, 16, 32):
+        put(f"mode{s}", mode_s[s])
+        put(f"cand{s}", cand_s[s])
+    if cost64 is not None:
+        _need(mode64_g, torch.int32, (nby64, nbx64), "mode64")
+        put("mode64", mode64_g)
+    for s in (8, 16, 32):
+        if s in cmode_s:
+            _need(cmode_s[s], torch.int32, shape_s[s], f"cmode{s}")
+            put(f"cmode{s}", cmode_s[s])
+    out = torch.empty((7, h4, w4), dtype=torch.int8, device=dev)
+    _launch("plan_dp", "hm_emit_plan", ctypes.byref(g), _ptr(out), st)
+    return out

@@ -1,0 +1,52 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions and against the CPU path.  Skipped without a CUDA device: the
+kernels have no CPU mode.  This file imports no JAX, so it also runs where
+JAX is absent:
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from make_fixtures import make_yuv
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_kernels_equal_plain(cuda):
+    """Every kernel's outputs equal its plain version's, at the shapes of a
+    264x200 frame (border CTUs on both axes)."""
+    import chip_smoke
+    frame = make_yuv(264, 200, 1, seed=3)[0]
+    stats = chip_smoke.check_kernels(frame, cuda, reps=1)
+    assert all(v["err"] == 0.0 for v in stats.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 10])
+def test_encode_on_card_equals_cpu(cuda, bits):
+    from hm16_2_tpu.decode.top import Decoder
+    from hm16_2_tpu_torch import kernels
+    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
+    frames = make_yuv(136, 72, 2, seed=8, bits=bits)
+    cfg = lambda: EncoderConfig(136, 72, qp=30, intra_period=1,
+                                bit_depth=bits)
+    kernels.reset_launches()
+    on_card = list(Encoder(cfg(), cuda).encode_stream(frames))
+    assert all(v > 0 for v in kernels.LAUNCHES.values())
+    on_cpu = list(Encoder(cfg(), torch.device("cpu")).encode_stream(frames))
+    assert on_card == on_cpu
+    pics = Decoder().decode_stream(b"".join(on_card))
+    assert [p.hash_ok for p in pics] == [True, True]
+    frame = [np.ascontiguousarray(p, dtype=np.int32) for p in frames[0]]
+    assert Encoder(cfg(), cuda).encode_frame(frame, 0) == on_card[0]
