@@ -5,14 +5,21 @@
 
 Builds the port's CUDA kernels from `hm16_2_tpu_torch/csrc`, holds each
 against its plain PyTorch version on the card at the shapes of a 1920x1080
-all-intra frame, then drives the port's all-intra encoder (HM's common-test
-All Intra Main configuration: QP 32, 8-bit 4:2:0, deblocking, SAO, MD5
-picture hash) over three 1080p frames through `Encoder.encode_stream`,
-decodes the stream and checks every picture hash, checks the per-frame
-entry `encode_frame`, and checks a small encode on the card against the
-same encode on the CPU (whose plain path the tests hold to the JAX
-reference).  Every failure raises; the last line of standard output is the
-device JSON.  Needs a CUDA device and exits non-zero without one.
+all-intra frame and of a 1080p P picture with four live references, then
+drives the port's two paths:
+
+- all-intra (HM's common-test All Intra Main configuration: QP 32, 8-bit
+  4:2:0, deblocking, SAO, MD5 picture hash) over three 1080p frames through
+  `Encoder.encode_stream`, and the per-frame entry `encode_frame`;
+- low-delay P (HM's Low Delay P Main: GOP 4, four references, QP offsets
+  +5/+4/+5/+1 on 32) over five 1080p frames, IDR + one GOP, through
+  `push_frame` / `flush`;
+
+decodes both streams and checks every picture hash, and checks small
+encodes on the card against the same encodes on the CPU (whose plain path
+the tests hold to the JAX reference).  Every failure raises; the last line
+of standard output is the device JSON.  Needs a CUDA device and exits
+non-zero without one.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -173,13 +181,207 @@ def check_kernels(frame, dev, reps=5):
     return stats
 
 
+def _flat(x):
+    """A stage's outputs as a flat tuple of tensors (dicts in key order)."""
+    if isinstance(x, dict):
+        return tuple(t for k in sorted(x, key=str) for t in _flat(x[k]))
+    if isinstance(x, (tuple, list)):
+        return tuple(t for v in x for t in _flat(v))
+    return (x,)
+
+
+def check_inter_kernels(frames, dev, reps=3, stats=None):
+    """K5-K8, K2 at the inter rounding offset and K4's P-plan emission
+    against their plain versions at the shapes of one P picture: the last
+    of `frames` against the four before it (all live), QP 33, a synthetic
+    motion prior.  Each kernel runs on the other kernels' outputs, so every
+    case sees what the main path gives it.  Adds to `stats`."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import inter_plan as P
+    from hm16_2_tpu_torch.encode import intra_rd as R
+
+    H, W = frames[-1][0].shape
+    nref, qp = 4, QP + 1
+    cur = torch.from_numpy(frames[-1][0].astype("int32")).to(dev)
+    refs = torch.from_numpy(np.stack([frames[-1 - d][0] for d in
+                                      range(1, nref + 1)]).astype("int32")) \
+        .to(dev)
+    rng = np.random.default_rng(7)
+    mvn16 = torch.from_numpy(rng.integers(-96, 96, (H // 8, W // 8, 2))
+                             .astype("int32")).to(dev)
+    dists = torch.arange(1, nref + 1, dtype=torch.int32, device=dev)
+    lam = 0.578 * 2.0 ** ((qp - 12) / 3.0)
+    lamf, lams = float(np.float32(lam)), float(np.float32(np.sqrt(lam)))
+    map0 = torch.arange(nref, dtype=torch.int32, device=dev)
+    if stats is None:
+        stats = {}
+    for k in K.LAUNCHES:
+        stats.setdefault(k, {"err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+
+    def case(kernel, label, run_k, run_p, r=reps):
+        got, want = _flat(run_k()), _flat(run_p())
+        err = _compare(f"{kernel} {label}", got, want)
+        ms, pms = _cuda_ms(run_k, r), _cuda_ms(run_p, r)
+        st = stats[kernel]
+        st["err"] = max(st["err"], err)
+        st["ms"] += ms
+        st["plain_ms"] += pms
+        print(f"kernel {kernel:14s} {label:28s} equal  "
+              f"kernel {ms:9.3f} ms  plain {pms:9.3f} ms", flush=True)
+        return run_k()
+
+    mvp8 = P._mvp_full(mvn16, dists)
+    me = case("inter_me", f"{nref} refs, all CU shapes",
+              lambda: K.inter_me(cur, refs, mvp8, lams, H, W, True),
+              lambda: P._int_me_plain(cur, refs, mvp8, lams, H, W, True),
+              r=1)
+    sub = case("subpel_planes", f"{nref} refs, 16 phases",
+               lambda: K.subpel_planes(refs, 8, H, W),
+               lambda: P._subpel_planes_plain(refs, 8, H, W))
+    recs, costs = {}, {}
+    for s in P.SIZES:
+        ny, nx = H // s, W // s
+        recs[s] = costs[s] = None
+        if not (ny and nx):
+            continue
+        shapes = [(0, s, s, ny, nx)]
+        if (s, 1) in me:
+            shapes += [(1, s // 2, s, 2 * ny, nx), (2, s, s // 2, ny, 2 * nx)]
+        unis = {}
+        for part, bh, bw, Ny, Nx in shapes:
+            p4 = (4 * P._me_mvp(mvp8, s, part)[:, :Ny, :Nx]).contiguous()
+            mv = me[(s, part)]
+            mvq, satd = case(
+                "inter_uni", f"q-pel refine {bh}x{bw}",
+                lambda: K.frac_refine(sub, cur, mv, p4, lams, bh, bw),
+                lambda: P._frac_refine_plain(sub, cur, mv, p4, lams, bh,
+                                             bw))
+            p4 = p4.reshape(nref, -1, 2)
+            unis[part] = case(
+                "inter_uni", f"list pick {bh}x{bw}",
+                lambda: K.uni_select(mvq, satd, p4, map0, nref, lams),
+                lambda: P._uni_select_plain(mvq, satd, p4, map0, nref, lams))
+            if part == 0:
+                tmvp4 = p4[0].contiguous()
+        intra = None
+        if s <= 32:
+            bufs, blocks = R._ref_buffers_plain(cur, s, 8, True, H, W)
+            args = (bufs, blocks, lamf, s, 8, 3, qp, True, False, False)
+            intra = case("intra_size_rd", f"inter offset s={s} k=3",
+                         lambda: K.intra_size_rd(*args, True),
+                         lambda: R._size_rd_plain(*args, True))[:3]
+        rect = {1: unis[1], 2: unis[2]} if 1 in unis else None
+        cargs = (cur, sub, s, unis[0], tmvp4, 0, rect, intra, lamf, lams, qp,
+                 8, 5)
+        recs[s], costs[s] = case("inter_cu_rd", f"CU pricing s={s}",
+                                 lambda: K.cu_rd(*cargs),
+                                 lambda: P._cu_rd_plain(*cargs))
+    case("plan_dp", "P plan DP + packed plan",
+         lambda: K.emit_inter_plan(recs, costs, lamf, H, W),
+         lambda: P._emit_plain(recs, costs, lamf, H, W))
+    return stats
+
+
+SOURCES = {
+    "ref_buffers": ("ref_buffers.cu", "hm16_2_tpu/encode/intra_rd.py:317"),
+    "intra_size_rd": ("intra_rd.cu", "hm16_2_tpu/encode/intra_rd.py:172"),
+    "intra_cand_rd": ("intra_rd.cu", "hm16_2_tpu/encode/intra_rd.py:212"),
+    "plan_dp": ("plan_dp.cu", "hm16_2_tpu/encode/intra_rd.py:377"),
+    "inter_me": ("inter_me.cu", "hm16_2_tpu/encode/inter_plan.py:209"),
+    "subpel_planes": ("subpel.cu", "hm16_2_tpu/encode/inter_plan.py:294"),
+    "inter_uni": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:362"),
+    "inter_cu_rd": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:444"),
+}
+
+
+def _launches_of(K, run, label, need):
+    """Drive `run` with every launch count at 0; fail if a kernel of `need`
+    was never launched.  Returns (result, counts)."""
+    K.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    print(f"launches {label} {json.dumps(counts)}", flush=True)
+    idle = [k for k in need if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched by {label}: {idle}")
+    return out, counts
+
+
+def _decode_check(aus, n, label):
+    from hm16_2_tpu.decode.top import Decoder
+    t0 = time.perf_counter()
+    pics = Decoder().decode_stream(b"".join(aus))
+    print(f"{label}: decoded {len(pics)} pictures in "
+          f"{time.perf_counter() - t0:.1f} s, hash_ok "
+          f"{[p.hash_ok for p in pics]}", flush=True)
+    if len(pics) != n or not all(p.hash_ok is True for p in pics):
+        raise AssertionError(f"{label}: decoded picture hash mismatch")
+
+
+def _push_all(enc, frames):
+    aus = []
+    for poc, f in enumerate(frames):
+        aus += enc.push_frame([p.astype("int32") for p in f], poc)
+    return aus + enc.flush()
+
+
+def ldp_phase(frames, dev):
+    """HM's Low Delay P Main over IDR + one GOP of four P pictures through
+    push_frame / flush; prints fps, the P pictures' stage_ms and their
+    device busy share (torch.profiler, device activity only).  Returns the
+    AUs and the launch counts."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
+    H, W = frames[0][0].shape
+    enc = Encoder(EncoderConfig(W, H, qp=QP, intra_period=0, gop="ld"), dev)
+    times = {}
+
+    def run():
+        t0 = time.perf_counter()
+        aus = enc.push_frame([p.astype("int32") for p in frames[0]], 0)
+        torch.cuda.synchronize()
+        times["idr"] = time.perf_counter() - t0
+        idr_ms = dict(enc.stage_ms)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for poc in range(1, len(frames)):
+                aus += enc.push_frame(
+                    [p.astype("int32") for p in frames[poc]], poc)
+            aus += enc.flush()
+            torch.cuda.synchronize()
+            times["p"] = time.perf_counter() - t1
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        print(f"profile of the P pictures: device busy {busy:.3f} ms of "
+              f"{times['p'] * 1e3:.3f} ms wall = "
+              f"{100 * busy / (times['p'] * 1e3):.3f}%", flush=True)
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+            print(f"  {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.3f}"
+                  f" ms  x{e.count}", flush=True)
+        times["stage_p"] = {k: v - idr_ms.get(k, 0.0)
+                            for k, v in enc.stage_ms.items()}
+        return aus
+
+    aus, counts = _launches_of(K, run, f"LDP {W}x{H}", list(K.LAUNCHES))
+    n_p = len(frames) - 1
+    print(f"LDP {W}x{H} QP{QP} GOP4: {len(aus)} pictures; IDR "
+          f"{times['idr']:.3f} s; {n_p} P pictures in {times['p']:.3f} s = "
+          f"{n_p / times['p']:.3f} fps; bytes {[len(a) for a in aus]}",
+          flush=True)
+    print("stage_ms per P picture: " + json.dumps(
+        {k: round(v / n_p, 3) for k, v in times["stage_p"].items()}),
+        flush=True)
+    return aus, counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False)")
     sys.path.insert(0, ROOT)
     from hm16_2_tpu import native
-    from hm16_2_tpu.decode.top import Decoder
     from hm16_2_tpu_torch import kernels as K
     from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
 
@@ -194,14 +396,15 @@ def main():
         raise AssertionError("native commit engine did not build")
 
     t0 = time.perf_counter()
-    frames = [[p.copy() for p in f] for f in _frames(W, H, 4)]
+    frames = [[p.copy() for p in f] for f in _frames(W, H, 6)]
     print(f"frames {W}x{H} made in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     dev = torch.device("cuda")
     stats = check_kernels(frames[0], dev)
+    check_inter_kernels(frames[1:6], dev, stats=stats)
 
-    # the slice: warm-up frame, then a timed 3-frame encode_stream
+    # all-intra: warm-up frame, then a timed 3-frame encode_stream
     from hm16_2_tpu_torch.encode.intra_rd import fetch_plan
     cfg = lambda: EncoderConfig(W, H, qp=QP, intra_period=1)
     warm = Encoder(cfg(), dev)
@@ -214,57 +417,54 @@ def main():
           f"{(time.perf_counter() - t0) / 5 * 1e3:.3f} ms per frame",
           flush=True)
     enc = Encoder(cfg(), dev)
-    K.reset_launches()
     t0 = time.perf_counter()
-    aus = list(enc.encode_stream(frames[:3]))
-    torch.cuda.synchronize()
+    aus, ai_counts = _launches_of(
+        K, lambda: list(enc.encode_stream(frames[:3])), f"AI {W}x{H}",
+        ("ref_buffers", "intra_size_rd", "intra_cand_rd", "plan_dp"))
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
     print(f"encode_stream {W}x{H} AI QP{QP}: 3 frames in {wall:.3f} s = "
           f"{3 / wall:.3f} fps; bytes {[len(a) for a in aus]}", flush=True)
     print("stage_ms per frame: " + json.dumps(
         {k: round(v / 3, 3) for k, v in enc.stage_ms.items()}), flush=True)
-    print(f"launches {json.dumps(launches)}", flush=True)
-    idle = [k for k, v in launches.items() if v == 0]
-    if idle:
-        raise AssertionError(f"kernels never launched by the encode: {idle}")
-    t0 = time.perf_counter()
-    pics = Decoder().decode_stream(b"".join(aus))
-    print(f"decoded {len(pics)} pictures in {time.perf_counter() - t0:.1f} s,"
-          f" hash_ok {[p.hash_ok for p in pics]}", flush=True)
-    if len(pics) != 3 or not all(p.hash_ok is True for p in pics):
-        raise AssertionError("decoded picture hash mismatch")
-
+    _decode_check(aus, 3, "AI")
     au0 = Encoder(cfg(), dev).encode_frame(
         [p.astype("int32") for p in frames[0]], 0)
     if au0 != aus[0]:
         raise AssertionError("encode_frame differs from encode_stream's AU 0")
     print("encode_frame(frame 0) equals encode_stream AU 0", flush=True)
 
-    small = _frames(136, 72, 3)
+    # low-delay P: IDR + one GOP of four P pictures
+    ldp_aus, ldp_counts = ldp_phase(frames[:5], dev)
+    _decode_check(ldp_aus, 5, "LDP")
+
+    small = _frames(136, 72, 5)
     cfg_s = lambda: EncoderConfig(136, 72, qp=QP, intra_period=1)
-    on_card = list(Encoder(cfg_s(), dev).encode_stream(small))
-    on_cpu = list(Encoder(cfg_s(), torch.device("cpu")).encode_stream(small))
+    on_card = list(Encoder(cfg_s(), dev).encode_stream(small[:3]))
+    on_cpu = list(Encoder(cfg_s(), torch.device("cpu"))
+                  .encode_stream(small[:3]))
     if on_card != on_cpu:
-        raise AssertionError("136x72 encode on the card differs from the CPU")
-    print("136x72 3-frame encode: card bytes equal CPU plain-path bytes",
+        raise AssertionError("136x72 AI encode on the card differs from the "
+                             "CPU")
+    print("136x72 3-frame AI encode: card bytes equal CPU plain-path bytes",
+          flush=True)
+    cfg_p = lambda: EncoderConfig(136, 72, qp=QP, intra_period=0, gop="ld")
+    on_card = _push_all(Encoder(cfg_p(), dev), small)
+    on_cpu = _push_all(Encoder(cfg_p(), torch.device("cpu")), small)
+    if on_card != on_cpu:
+        raise AssertionError("136x72 LDP encode on the card differs from the "
+                             "CPU")
+    print("136x72 5-frame LDP encode: card bytes equal CPU plain-path bytes",
           flush=True)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print("jax not imported", flush=True)
 
-    srcs = {"ref_buffers": ("ref_buffers.cu",
-                            "hm16_2_tpu/encode/intra_rd.py:317"),
-            "intra_size_rd": ("intra_rd.cu",
-                              "hm16_2_tpu/encode/intra_rd.py:172"),
-            "intra_cand_rd": ("intra_rd.cu",
-                              "hm16_2_tpu/encode/intra_rd.py:212"),
-            "plan_dp": ("plan_dp.cu", "hm16_2_tpu/encode/intra_rd.py:377")}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
-         "source": f"hm16_2_tpu_torch/csrc/{srcs[k][0]}",
-         "replaces": srcs[k][1], "launches": launches[k],
+         "source": f"hm16_2_tpu_torch/csrc/{SOURCES[k][0]}",
+         "replaces": SOURCES[k][1],
+         "launches": ai_counts[k] + ldp_counts[k],
          "max_abs_err": stats[k]["err"], "ms": stats[k]["ms"],
          "plain_ms": stats[k]["plain_ms"]} for k in K.LAUNCHES]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-// Device code shared by the intra RD kernels (K2 intra_size_rd, K3
-// intra_cand_rd in intra_rd.cu): one sample of any of the 35 intra
-// predictions, the forward transform -> quant -> dequant -> inverse chain of
-// a candidate, and the context-free residual-bits model.
+// Device code shared by the RD kernels (K2 intra_size_rd, K3 intra_cand_rd
+// in intra_rd.cu; K7 inter_uni, K8 inter_cu_rd in inter_rd.cu; K5 inter_me
+// in inter_me.cu): one sample of any of the 35 intra predictions, the
+// forward transform -> quant -> dequant -> inverse chain of a residual, the
+// context-free residual-bits model, the 8x8 Hadamard SATD and the MVD bins.
 //
 // Everything is int32 arithmetic in the reference's order, except the
 // bits/cost floats, which follow XLA:CPU's rounding steps: the file is built
@@ -180,21 +181,12 @@ __device__ void load_blocks(BlockSmem<S, G>& sm, const int* bufs,
   __syncthreads();
 }
 
-// transform RD of one candidate mode per block (mode_of(g) gives it):
-// leaves dist in sm.dist and the level statistics in sm.nnz ... sm.last_y
-template <int S, int G, typename ModeOf>
-__device__ void candidate_chain(BlockSmem<S, G>& sm, const TqParams& p,
-                                ModeOf mode_of) {
+// transform RD of the residuals in sm.wa (predictions in sm.pred, originals
+// in sm.orig): adds the reconstruction SSE to sm.dist and the level
+// statistics to sm.nnz ... sm.last_y
+template <int S, int G>
+__device__ void transform_chain(BlockSmem<S, G>& sm, const TqParams& p) {
   constexpr int SS = S * S;
-  // prediction and residual
-  for (int q = threadIdx.x; q < G * SS; q += blockDim.x) {
-    int g = q / SS, yx = q % SS;
-    int v = pred_sample<S>(sm.bu[g], sm.bf[g], sm.ang, sm.dcval[g],
-                           mode_of(g), yx / S, yx % S, p);
-    sm.pred[g][yx] = v;
-    sm.wa[g][yx] = sm.orig[g][yx] - v;
-  }
-  __syncthreads();
   // forward stage 1: wb[i][k] = sum_j resi[i][j] * T[k][j]
   for (int q = threadIdx.x; q < G * SS; q += blockDim.x) {
     int g = q / SS, i = (q % SS) / S, k = q % S;
@@ -252,6 +244,24 @@ __device__ void candidate_chain(BlockSmem<S, G>& sm, const TqParams& p,
   __syncthreads();
 }
 
+// transform RD of one candidate mode per block (mode_of(g) gives it):
+// leaves dist in sm.dist and the level statistics in sm.nnz ... sm.last_y
+template <int S, int G, typename ModeOf>
+__device__ void candidate_chain(BlockSmem<S, G>& sm, const TqParams& p,
+                                ModeOf mode_of) {
+  constexpr int SS = S * S;
+  // prediction and residual
+  for (int q = threadIdx.x; q < G * SS; q += blockDim.x) {
+    int g = q / SS, yx = q % SS;
+    int v = pred_sample<S>(sm.bu[g], sm.bf[g], sm.ang, sm.dcval[g],
+                           mode_of(g), yx / S, yx % S, p);
+    sm.pred[g][yx] = v;
+    sm.wa[g][yx] = sm.orig[g][yx] - v;
+  }
+  __syncthreads();
+  transform_chain<S, G>(sm, p);
+}
+
 // bits of the candidate just evaluated; resets the statistics (thread g)
 template <int S, int G>
 __device__ __forceinline__ float take_bits(BlockSmem<S, G>& sm, int g,
@@ -261,6 +271,52 @@ __device__ __forceinline__ float take_bits(BlockSmem<S, G>& sm, int g,
   sm.nnz[g] = sm.gt1[g] = sm.esc[g] = 0;
   sm.last_x[g] = sm.last_y[g] = -1;
   return b;
+}
+
+// HM's 8x8 Hadamard SATD of one tile of differences, (sum |H d H| + 2) >> 2
+__device__ __forceinline__ int satd8x8(int (&v)[64]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int h = 1; h < 8; h <<= 1)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (!(i & h)) {
+          int a = v[r * 8 + i], b = v[r * 8 + i + h];
+          v[r * 8 + i] = a + b;
+          v[r * 8 + i + h] = a - b;
+        }
+  int sum = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int h = 1; h < 8; h <<= 1)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (!(i & h)) {
+          int a = v[i * 8 + c], b = v[(i + h) * 8 + c];
+          v[i * 8 + c] = a + b;
+          v[(i + h) * 8 + c] = a - b;
+        }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum += v[i * 8 + c] < 0 ? -v[i * 8 + c] : v[i * 8 + c];
+  }
+  return (sum + 2) >> 2;
+}
+
+// bins of one quarter-pel MVD component: greater0, greater1, sign + EG1
+// (5 + 2 * floor(log2(max(|d| >> 1, 1))); XLA's log2 floors 8192 to 12)
+__device__ __forceinline__ float mvd_comp_bits(int d) {
+  int a = d < 0 ? -d : d;
+  if (a == 0) return 1.f;
+  if (a == 1) return 3.f;
+  int h = a >> 1;
+  int e = bit_length(h) - 1 - (h == 8192 ? 1 : 0);
+  return __int2float_rn(5 + 2 * e);
+}
+
+__device__ __forceinline__ float mvd_bits(int dx, int dy) {
+  return __fadd_rn(mvd_comp_bits(dx), mvd_comp_bits(dy));
 }
 
 }  // namespace hm

@@ -1,5 +1,5 @@
 // K4 plan_dp: the frame-level decisions of the all-intra plan after the
-// per-size RD.
+// per-size RD, and the quadtree DP and emission of the P-picture plan.
 //
 // Replaces the rest of `_plan_device` (hm16_2_tpu/encode/intra_rd.py:421-575):
 // the chroma candidates and fold (:424-447), the 64x64 mode from the
@@ -7,6 +7,11 @@
 // (:471-497) and the dense emission of the packed (7, h/4, w/4) int8 plan
 // (:499-575), with the border rules for frames that are not a multiple of
 // 64.  Torch only allocates and gathers the 64x64 level's TU32 inputs.
+// For the P-picture plan (hm16_2_tpu/encode/inter_plan.py `_emit_plan`,
+// :978-1101) the same DP level kernel runs with SPLIT_BITS = 3 on the CU
+// costs of K8, and `emit_inter_kernel` writes the packed (24, h/4, w/4)
+// int16 plan from K8's per-CU records, with the border rules of frames that
+// are not a multiple of 64 and no intra at 64x64.
 //
 // What bounds it: kernel launches.  At 1080p the grids hold 8k-130k
 // entries and each entry costs a handful of operations, so every launch is
@@ -205,6 +210,78 @@ __global__ void emit_kernel(PlanGrids g, signed char* __restrict__ out) {
   out[6 * plane + q] = (signed char)flags;
 }
 
+// the P-picture plan: per size (index 0..3 = 8, 16, 32, 64) the CU grid,
+// its K8 records (null: the size is absent) and the DP split flags
+struct InterGrids {
+  int h4, w4;
+  int ny[4], nx[4];
+  const unsigned char *split16, *split32, *split64;   // null: all false
+  const int* rec[4];                                  // (ny*nx, 24)
+};
+
+enum { REC_KIND, REC_MSRC, REC_DIR, REC_SKIP, REC_INTRA, REC_IMODE,
+       REC_MV0Y, REC_MV0X, REC_MV1Y, REC_MV1X, REC_REF0, REC_REF1, REC_C0,
+       REC_PART = 15, REC_PU = 16, REC_N = 24 };
+
+__global__ void emit_inter_kernel(InterGrids g, short* __restrict__ out) {
+  int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= g.h4 * g.w4) return;
+  int iy = q / g.w4, ix = q % g.w4;
+  auto in = [&](int k, int y, int x) { return y < g.ny[k] && x < g.nx[k]; };
+  auto split = [&](const unsigned char* f, int k, int y, int x) {
+    return f && in(k, y, x) && f[y * g.nx[k] + x];
+  };
+  // leaf / descend of the 64 level; active = descended into, or border
+  auto desc64 = [&](int y, int x) { return split(g.split64, 3, y, x); };
+  auto active32 = [&](int y, int x) {
+    bool border = y >= 2 * g.ny[3] || x >= 2 * g.nx[3];
+    return in(2, y, x) && (desc64(y >> 1, x >> 1) || border);
+  };
+  auto desc32 = [&](int y, int x) {
+    return active32(y, x) && split(g.split32, 2, y, x);
+  };
+  auto active16 = [&](int y, int x) {
+    bool border = y >= 2 * g.ny[2] || x >= 2 * g.nx[2];
+    return in(1, y, x) && (desc32(y >> 1, x >> 1) || border);
+  };
+  auto leaf8 = [&](int y, int x) {
+    bool border = y >= 2 * g.ny[1] || x >= 2 * g.nx[1];
+    bool desc16 = active16(y >> 1, x >> 1) && split(g.split16, 1, y >> 1, x >> 1);
+    return in(0, y, x) && (desc16 || border);
+  };
+  int ys[4] = {iy >> 1, iy >> 2, iy >> 3, iy >> 4};
+  int xs[4] = {ix >> 1, ix >> 2, ix >> 3, ix >> 4};
+  bool m[4];
+  m[3] = in(3, ys[3], xs[3]) && !desc64(ys[3], xs[3]);
+  m[2] = active32(ys[2], xs[2]) && !split(g.split32, 2, ys[2], xs[2]);
+  m[1] = active16(ys[1], xs[1]) && !split(g.split16, 1, ys[1], xs[1]);
+  m[0] = leaf8(ys[0], xs[0]);
+  int k = m[3] ? 3 : m[2] ? 2 : m[1] ? 1 : m[0] ? 0 : -1;
+  const int* r = k >= 0 && g.rec[k] ? g.rec[k] + (size_t)(ys[k] * g.nx[k] + xs[k]) * REC_N
+                                    : nullptr;
+  auto f = [&](int field, int dflt) { return r ? r[field] : dflt; };
+  int intra = k == 3 ? 0 : f(REC_INTRA, 0);
+  int cov = k >= 0 ? 1 : 0;
+  int ch[24];
+  ch[0] = k >= 0 ? 3 - k : -1;
+  ch[1] = cov | (intra << 1) | (f(REC_SKIP, 0) << 2);
+  ch[2] = f(REC_KIND, 0);
+  ch[3] = f(REC_MSRC, 0);
+  ch[4] = f(REC_DIR, 1);
+  ch[5] = f(REC_MV0X, 0);
+  ch[6] = f(REC_MV0Y, 0);
+  ch[7] = f(REC_MV1X, 0);
+  ch[8] = f(REC_MV1Y, 0);
+  ch[9] = f(REC_REF0, -1);
+  ch[10] = f(REC_REF1, -1);
+  ch[11] = f(REC_IMODE, 0);
+  for (int c = 0; c < 3; ++c) ch[12 + c] = k == 3 ? -1 : f(REC_C0 + c, -1);
+  ch[15] = f(REC_PART, 0);
+  for (int c = 0; c < 8; ++c) ch[16 + c] = f(REC_PU + c, 0);
+  size_t plane = (size_t)g.h4 * g.w4;
+  for (int c = 0; c < 24; ++c) out[c * plane + q] = (short)ch[c];
+}
+
 static unsigned blocks_for(long long n) { return (unsigned)((n + 255) / 256); }
 
 }  // namespace hm
@@ -267,5 +344,13 @@ extern "C" int hm_emit_plan(const hm::PlanGrids* g, signed char* out,
   if (g->h4 <= 0 || g->w4 <= 0) return (int)cudaErrorInvalidValue;
   hm::emit_kernel<<<hm::blocks_for((long long)g->h4 * g->w4), 256, 0,
                     (cudaStream_t)stream>>>(*g, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hm_emit_inter_plan(const hm::InterGrids* g, short* out,
+                                  void* stream) {
+  if (g->h4 <= 0 || g->w4 <= 0) return (int)cudaErrorInvalidValue;
+  hm::emit_inter_kernel<<<hm::blocks_for((long long)g->h4 * g->w4), 256, 0,
+                          (cudaStream_t)stream>>>(*g, out);
   return (int)cudaGetLastError();
 }

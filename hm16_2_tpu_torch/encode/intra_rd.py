@@ -201,13 +201,14 @@ def _take_modes(preds, modes):
                         .expand(-1, -1, s, s))
 
 
-def _cand_chain(blocks, cand, s, bd, qp, use_dst):
+def _cand_chain(blocks, cand, s, bd, qp, use_dst, inter=False):
     """Transform RD of candidate predictions (N, K, s, s) against
-    (N, s, s) originals: int32 SSE as float32, and the level blocks."""
+    (N, s, s) originals: int32 SSE as float32, and the level blocks.
+    inter: quantise with the inter rounding offset (85, else 171)."""
     resi = blocks[:, None] - cand
     log2 = s.bit_length() - 1
     fwd = analysis.batched_fwd_transform(resi, bd, use_dst)
-    lvl = analysis.batched_quant(fwd, qp, bd, log2, True)
+    lvl = analysis.batched_quant(fwd, qp, bd, log2, not inter)
     deq = batched_dequant(lvl, qp, bd, log2)
     rres = batched_inv_transform(deq, bd, use_dst)
     rec = torch.clamp(cand + rres, 0, (1 << bd) - 1)
@@ -217,12 +218,12 @@ def _cand_chain(blocks, cand, s, bd, qp, use_dst):
 
 
 def _size_rd_plain(bufs, blocks, lam, s, bd, k, qp, is_luma, use_dst,
-                   want_satd):
+                   want_satd, inter=False):
     preds = analysis.predict_all_modes(bufs, s, is_luma, bd)
     satd = analysis.batched_satd(preds - blocks[:, None])
     topk = _topk_argmin(satd.to(torch.float32), k)
     cand = _take_modes(preds, topk)
-    dist, lvl = _cand_chain(blocks, cand, s, bd, qp, use_dst)
+    dist, lvl = _cand_chain(blocks, cand, s, bd, qp, use_dst, inter)
     bits = BITS_SCALE * _bits_estimate(lvl) + float(LUMA_MODE_BITS)
     cost = _fma32(_f32(lam, dist).expand_as(bits), bits, dist)
     rd_order = _topk_argmin(cost, 3)
@@ -307,15 +308,16 @@ def ref_buffers(plane, s: int, bd: int, strong: bool, h: int, w: int):
 
 def size_rd(bufs, blocks, lam: float, s: int, bd: int, k: int, qp: int,
             is_luma: bool = True, use_dst: bool = False,
-            want_satd: bool = False):
+            want_satd: bool = False, inter: bool = False):
     """Best mode + RD cost for N blocks of one size (K2).  Returns
     (best_mode (N,) i32, cost (N,) f32, top3 (N, 3) i32, satd (N, 35) i32
-    or None)."""
+    or None).  inter: the inter plan's intra alternative, quantised with
+    the inter rounding offset."""
     if _on_cuda(bufs):
         return kernels.intra_size_rd(bufs, blocks, lam, s, bd, k, qp,
-                                     is_luma, use_dst, want_satd)
+                                     is_luma, use_dst, want_satd, inter)
     return _size_rd_plain(bufs, blocks, lam, s, bd, k, qp, is_luma,
-                          use_dst, want_satd)
+                          use_dst, want_satd, inter)
 
 
 def premodes(bufs, blocks, s: int, bd: int):

@@ -1,18 +1,23 @@
-"""Encoder top level of the port: the reference's all-intra encoder with
-its frame plan computed by PyTorch and the hand-written CUDA kernels.
+"""Encoder top level of the port: the reference's encoder with its frame
+plans computed by PyTorch and the hand-written CUDA kernels.
 
 `Encoder` and `CtuSearch` subclass the reference's classes
 (hm16_2_tpu/encode/top.py), whose host work (CU commit through the native
 engine, deblocking, SAO, CABAC, headers, hash SEI) has no JAX in it.  They
 override only what reaches a JAX module: the plan submission, the per-frame
 `_encode_one` (which builds `CtuSearch` by name and plans at its top; a copy
-with those call sites pointed here), and the fallback search's 35-mode
-SATD analysis.  Only the all-intra configuration is ported; any other
-raises NotImplementedError.
+with those call sites pointed here), the pipelined dispatch of the next
+P picture's plan, and the fallback search's 35-mode SATD analysis.
+
+Ported: all-intra, and the P-only structures (low-delay P with HM's GOP-4
+table, flat-QP IPPP through `encode_frame`, a `gop_table` of P entries).
+B slices, the inter ME fallback and the host-only search switches raise
+NotImplementedError; nothing falls back to another path.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -21,27 +26,31 @@ import torch
 from hm16_2_tpu.bitstream.bitio import (
     BitWriter, count_emulation_prevention, make_nal, write_annexb)
 from hm16_2_tpu.bitstream.cabac import CabacEncoder, ContextSet
+from hm16_2_tpu.decode.mvpred import MvPredictor, RefCtx
 from hm16_2_tpu.decode.picture import PictureState
-from hm16_2_tpu.decode.refpics import RefPicture
+from hm16_2_tpu.decode.refpics import RefPicture, build_ref_lists
 from hm16_2_tpu.decode.top import picture_md5
 from hm16_2_tpu.encode import top as _ref
 from hm16_2_tpu.encode.ctu_enc import CtuEncoder
 from hm16_2_tpu.encode.top import EncoderConfig
 from hm16_2_tpu.headers import write as W
 from hm16_2_tpu.headers.params import (
-    I_SLICE, NAL_IDR_N_LP, NAL_IDR_W_RADL, is_irap)
+    B_SLICE, I_SLICE, NAL_IDR_N_LP, NAL_IDR_W_RADL, NAL_TRAIL_R, P_SLICE,
+    is_irap)
 from hm16_2_tpu.ops import intra_ref
-from hm16_2_tpu_torch.encode import intra_rd
+from hm16_2_tpu_torch.encode import inter_plan, intra_rd
 from hm16_2_tpu_torch.ops import analysis
 
 
 def _unported(cfg) -> list[str]:
-    """The options of `cfg` that leave the all-intra slice."""
+    """The options of `cfg` that leave the ported paths (all-intra and
+    P-only structures)."""
     out = []
-    if cfg.intra_period != 1:
-        out.append(f"intra_period={cfg.intra_period} (P/B pictures)")
-    if cfg.gop_table or cfg.gop != "ld":
-        out.append("a GOP structure")
+    if cfg.gop_table:
+        if any(e.get("type", "B") != "P" for e in cfg.gop_table):
+            out.append("a gop_table with B entries")
+    elif cfg.gop != "ld":
+        out.append(f"gop={cfg.gop!r} (B pictures)")
     if cfg.target_bps:
         out.append("rate control")
     if getattr(cfg, "field_coding", False):
@@ -52,7 +61,8 @@ def _unported(cfg) -> list[str]:
 
 
 class Encoder(_ref.Encoder):
-    """All-intra HEVC encoder whose frame plan runs on `device`."""
+    """HEVC encoder (all-intra or P-only) whose frame plans run on
+    `device`."""
 
     def __init__(self, cfg: EncoderConfig, device: torch.device):
         if not isinstance(device, torch.device):
@@ -60,8 +70,8 @@ class Encoder(_ref.Encoder):
         unported = _unported(cfg)
         if unported:
             raise NotImplementedError(
-                "the PyTorch port encodes all-intra only; not ported: "
-                + ", ".join(unported))
+                "the PyTorch port encodes all-intra and P-only structures; "
+                "not ported: " + ", ".join(unported))
         super().__init__(cfg)
         self.device = device
 
@@ -219,9 +229,39 @@ class Encoder(_ref.Encoder):
                     getattr(search, "chroma_weight", 1.0), cqps, self.device)
             _tick("plan", t0)
         if sh.slice_type != I_SLICE:
-            raise NotImplementedError(
-                "the PyTorch port plans I slices only (the P/B plan is not "
-                "ported)")
+            if sh.slice_type == B_SLICE:
+                raise NotImplementedError(
+                    "the PyTorch port plans I and P slices only (the B-slice "
+                    "plan is not ported)")
+            ref_lists = build_ref_lists(sh, self.dpb)
+            if pps.weighted_pred and sh.slice_type == P_SLICE:
+                from hm16_2_tpu.encode.wp_analysis import estimate_wp
+                estimate_wp(sh, planes, ref_lists, sps, pps)
+            rc = RefCtx(sh, ref_lists)
+            search.mvp = MvPredictor(pic, rc, 0)
+            search.cenc.mvp = search.mvp
+            if plan_packed is not None:
+                # pipelined path: the plan was enqueued while the previous
+                # picture committed
+                t0 = time.perf_counter()
+                search.plan = plan_packed()
+                _tick("plan", t0)
+            if search.plan is None and cfg.rdo:
+                for var in ("HM16_NO_INTER_PLAN", "HM16_EXACT_RD"):
+                    if os.environ.get(var):
+                        raise NotImplementedError(
+                            f"{var}: the host-only inter search is not "
+                            "ported")
+                t0 = time.perf_counter()
+                search.plan = inter_plan.plan_frame(
+                    planes[0], sps, sh, rc, self._prev_mv8,
+                    float(search.lam), float(np.sqrt(search.lam)),
+                    self.device)
+                _tick("plan", t0)
+                if search.plan is None:
+                    raise NotImplementedError(
+                        "a P slice without a plan would take the inter ME "
+                        "fallback (inter_me), which is not ported")
         # pass 1: mode decisions + reconstruction (TEncSlice::compressSlice).
         # Planned I-slices commit the whole frame in ONE native call (the
         # C++ engine walks every CTU, border CTUs via implicit splits);
@@ -625,6 +665,34 @@ class Encoder(_ref.Encoder):
             vcl_bits = sum(len(n) for n in slice_nals) * 8
             self.rc.update_after_picture(vcl_bits, hdr_bits)
         return au
+
+    def _predispatch_ra(self, planes, poc, slot, nal_type=NAL_TRAIL_R):
+        """Enqueue the next picture's P plan while the current picture
+        commits, when every reference of the next picture is already
+        committed (the reference's conditions, top.py:915-950).  Returns
+        (sh, plan_fetch) or None; errors propagate."""
+        cfg = self.cfg
+        if (self.rc is not None or not cfg.rdo or not self.gop_table
+                or getattr(cfg, "delta_qp_rd", 0)
+                or os.environ.get("HM16_NO_INTER_PLAN")
+                or os.environ.get("HM16_EXACT_RD")
+                or os.environ.get("HM16_NO_PLAN_PIPELINE")):
+            return None
+        sh = self._ra_slice_header(poc, slot, nal_type)
+        sh.poc = poc             # the plan prices by POC distances
+        if self.pps.weighted_pred and sh.slice_type == P_SLICE:
+            return None          # WP estimation mutates sh per picture
+        if sh.slice_type == B_SLICE:
+            raise NotImplementedError("the B-slice plan is not ported")
+        rc = RefCtx(sh, build_ref_lists(sh, self.dpb))
+        alpha, mult = self._lambda_args(sh, slot)
+        lam = alpha * 2.0 ** ((sh.qp - 12) / 3.0) * mult
+        fetch = inter_plan.plan_frame(
+            planes[0], self.sps, sh, rc, self._prev_mv8, float(lam),
+            float(np.sqrt(lam)), self.device, fetch=False)
+        if fetch is None:
+            return None
+        return sh, fetch
 
 
 class CtuSearch(_ref.CtuSearch):

@@ -8,10 +8,16 @@ the functions here allocate outputs with torch, check device, dtype, shape
 and contiguity, launch, and raise if `cudaGetLastError()` is not 0.
 
     K1 ref_buffers    csrc/ref_buffers.cu
-    K2 intra_size_rd  csrc/intra_rd.cu   (also SATD-only for _premodes)
+    K2 intra_size_rd  csrc/intra_rd.cu   (also SATD-only for _premodes, and
+                                          the P plan's intra alternative)
     K3 intra_cand_rd  csrc/intra_rd.cu
     K4 plan_dp        csrc/plan_dp.cu    (chroma fold, 64x64 level, DP,
-                                          emission: several launches)
+                                          emission of both plans)
+    K5 inter_me       csrc/inter_me.cu   (downsample, coarse grid, pyramid,
+                                          argmin, refinement)
+    K6 subpel_planes  csrc/subpel.cu
+    K7 inter_uni      csrc/inter_rd.cu   (q-pel refinement, list pick)
+    K8 inter_cu_rd    csrc/inter_rd.cu
 
 `LAUNCHES` counts kernel launches per kernel; the counts grow only where a
 kernel is launched.  Nothing here runs at import: `nvcc` is looked up and
@@ -37,13 +43,15 @@ from hm16_2_tpu.ops.intra_ref import should_filter
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 _BUILD = os.path.join(_DIR, "_build")
-_SOURCES = ("ref_buffers.cu", "intra_rd.cu", "plan_dp.cu")
+_SOURCES = ("ref_buffers.cu", "intra_rd.cu", "plan_dp.cu", "inter_me.cu",
+            "subpel.cu", "inter_rd.cu")
 _HEADERS = ("intra_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"ref_buffers": 0, "intra_size_rd": 0, "intra_cand_rd": 0,
-            "plan_dp": 0}
+            "plan_dp": 0, "inter_me": 0, "subpel_planes": 0, "inter_uni": 0,
+            "inter_cu_rd": 0}
 
 
 def reset_launches():
@@ -69,6 +77,36 @@ class PlanGrids(ctypes.Structure):
             "cmode8", "cmode16", "cmode32")]
 
 
+class InterGrids(ctypes.Structure):
+    """hm::InterGrids (csrc/plan_dp.cu)."""
+    _fields_ = [("h4", ctypes.c_int), ("w4", ctypes.c_int),
+                ("ny", ctypes.c_int * 4), ("nx", ctypes.c_int * 4),
+                ("split16", ctypes.c_void_p), ("split32", ctypes.c_void_p),
+                ("split64", ctypes.c_void_p), ("rec", ctypes.c_void_p * 4)]
+
+
+class UniRes(ctypes.Structure):
+    """hm::UniRes (csrc/inter_rd.cu)."""
+    _fields_ = [(n, ctypes.c_void_p) for n in ("mv", "uref", "ridx", "bits",
+                                              "cost")]
+
+
+class CuRdArgs(ctypes.Structure):
+    """hm::CuRdArgs (csrc/inter_rd.cu)."""
+    _fields_ = [("cur", ctypes.c_void_p), ("h", ctypes.c_int),
+                ("w", ctypes.c_int), ("sub", ctypes.c_void_p),
+                ("Hp", ctypes.c_int), ("Wp", ctypes.c_int),
+                ("nx", ctypes.c_int), ("uni", UniRes),
+                ("tmvp4", ctypes.c_void_p), ("ref0", ctypes.c_int),
+                ("rect", UniRes * 2), ("has_rect", ctypes.c_int),
+                ("i_mode", ctypes.c_void_p), ("i_top3", ctypes.c_void_p),
+                ("i_cost", ctypes.c_void_p), ("has_intra", ctypes.c_int),
+                ("lamf", ctypes.c_float), ("lams", ctypes.c_float),
+                ("nmerge", ctypes.c_int), ("tq", TqParams),
+                ("tm", ctypes.c_void_p), ("model", ctypes.c_void_p),
+                ("rec", ctypes.c_void_p), ("cost", ctypes.c_void_p)]
+
+
 _lib = None
 
 
@@ -89,19 +127,36 @@ def _library_path():
 
 
 def build():
-    """Compile the kernels if the cached library is missing; returns
-    (library path, seconds spent compiling)."""
+    """Compile the kernels if the cached library is missing, one nvcc per
+    source, all at once, then link; returns (library path, seconds spent
+    compiling)."""
     out = _library_path()
     if os.path.exists(out):
         return out, 0.0
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(_CSRC, s) for s in _SOURCES]]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + r.stdout + r.stderr)
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o",
+                               f"{tmp}.{i}.o", os.path.join(_CSRC, src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for i, src in enumerate(_SOURCES)]
+    errs = []
+    for pr in procs:
+        o, e = pr.communicate()
+        if pr.returncode != 0:
+            errs.append(o + e)
+    objs = [f"{tmp}.{i}.o" for i in range(len(_SOURCES))]
+    if not errs:
+        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp,
+                            *objs], capture_output=True, text=True)
+        if r.returncode != 0:
+            errs.append(r.stdout + r.stderr)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if errs:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errs))
     os.replace(tmp, out)
     return out, time.perf_counter() - t0
 
@@ -124,6 +179,17 @@ def _load():
         "hm_cost64": [P, P, P, I, I, I, F, F, P, P],
         "hm_dp_level": [P, I, P, I, I, F, F, I, P, P, P],
         "hm_emit_plan": [ctypes.POINTER(PlanGrids), P, P],
+        "hm_emit_inter_plan": [ctypes.POINTER(InterGrids), P, P],
+        "hm_me_down": [P, I, I, I, I, I, P, P],
+        "hm_me_coarse8": [P, P, I, I, I, I, I, P, P],
+        "hm_me_quad": [P, ctypes.c_longlong, I, I, I, I, P, P],
+        "hm_me_argmin": [P, I, I, I, I, I, I, P, F, P, P],
+        "hm_me_refine": [P, I, I, P, I, I, I, I, I, P, P, F, P, P],
+        "hm_subpel_planes": [P, I, I, I, I, P, P],
+        "hm_frac_refine": [P, I, I, P, I, P, I, I, I, I, I, P, P, P, F, P, P,
+                           P],
+        "hm_uni_select": [P, P, P, P, I, I, I, F, P, P, P, P, P, P, P, P],
+        "hm_cu_rd": [ctypes.POINTER(CuRdArgs), I, I, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -196,8 +262,9 @@ def _device_tables(device):
     return _tables[key]
 
 
-def _tq_params(s, bd, qp, is_luma):
-    """The transform chain's constants for one size (hm::TqParams)."""
+def _tq_params(s, bd, qp, is_luma, inter=False):
+    """The transform chain's constants for one size (hm::TqParams); inter:
+    the inter rounding offset (85) in place of the intra one (171)."""
     log2 = s.bit_length() - 1
     per, rem = qp // 6, qp % 6
     tshift = 15 - bd - log2
@@ -212,7 +279,8 @@ def _tq_params(s, bd, qp, is_luma):
         s=s, log2=log2, bd=bd, maxv=(1 << bd) - 1,
         edge=int(is_luma and s <= 16), fwd_s1=log2 - 1 + bd - 8,
         fwd_s2=log2 + 6, q_scale=int(QUANT_SCALES[rem]), q_bits=q_bits,
-        q_add=171 << (q_bits - 9), dq_scale=int(INV_QUANT_SCALES[rem]),
+        q_add=(85 if inter else 171) << (q_bits - 9),
+        dq_scale=int(INV_QUANT_SCALES[rem]),
         dq_shift=dq_shift, dq_min=-(1 << (target_bd - 1)),
         dq_max=(1 << (target_bd - 1)) - 1, inv_s2=20 - bd, filt=filt)
 
@@ -257,13 +325,13 @@ def _need_blocks(bufs, blocks, s):
 
 
 def intra_size_rd(bufs, blocks, lam, s, bd, k, qp, is_luma, use_dst,
-                  want_satd):
+                  want_satd, inter=False):
     n = _need_blocks(bufs, blocks, s)
     if not 3 <= k <= 4:
         raise ValueError(f"intra_size_rd: k={k} outside 3..4")
     dev = bufs.device
     tabs = _device_tables(dev)
-    p = _tq_params(s, bd, qp, is_luma)
+    p = _tq_params(s, bd, qp, is_luma, inter)
     mode = torch.empty(n, dtype=torch.int32, device=dev)
     cost = torch.empty(n, dtype=torch.float32, device=dev)
     top3 = torch.empty((n, 3), dtype=torch.int32, device=dev)
@@ -430,4 +498,223 @@ def plan_dp(lam, h, w, mode_s, cost_s, cand_s, cmode_s, chroma_add32, d64,
             put(f"cmode{s}", cmode_s[s])
     out = torch.empty((7, h4, w4), dtype=torch.int8, device=dev)
     _launch("plan_dp", "hm_emit_plan", ctypes.byref(g), _ptr(out), st)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5
+# ---------------------------------------------------------------------------
+
+def inter_me(cur, refs, mvp8, lams, h, w, parts):
+    from hm16_2_tpu_torch.encode.inter_plan import _me_mvp, _shapes
+    R = refs.shape[0]
+    _need(cur, torch.int32, (h, w), "cur")
+    _need(refs, torch.int32, (R, h, w), "refs")
+    _need(mvp8, torch.int32, (R, h // 8, w // 8, 2), "mvp8")
+    dev = cur.device
+    st = _stream(cur)
+    lam = float(np.float32(lams))
+    hc, wc = h // 4, w // 4
+    n8y, n8x = h // 8, w // 8
+    if not (R and n8y and n8x):
+        raise ValueError(f"inter_me: no 8x8 block in {h}x{w} or no reference")
+    cd = torch.empty((hc, wc), dtype=torch.int32, device=dev)
+    rd = torch.empty((R, hc, wc), dtype=torch.int32, device=dev)
+    _launch("inter_me", "hm_me_down", _ptr(cur), 1, h, w, hc, wc, _ptr(cd),
+            st)
+    _launch("inter_me", "hm_me_down", _ptr(refs), R, h, w, hc, wc, _ptr(rd),
+            st)
+    O = 33 * 33
+    grids = {8: torch.empty((R, O, n8y, n8x), dtype=torch.float32,
+                            device=dev)}
+    _launch("inter_me", "hm_me_coarse8", _ptr(cd), _ptr(rd), R, hc, wc, n8y,
+            n8x, _ptr(grids[8]), st)
+    for s in (16, 32, 64):
+        ny, nx = h // s, w // s
+        p = grids[s // 2]
+        grids[s] = torch.empty((R, O, ny, nx), dtype=torch.float32, device=dev)
+        if ny and nx:
+            _launch("inter_me", "hm_me_quad", _ptr(p), R * O, p.shape[2],
+                    p.shape[3], ny, nx, _ptr(grids[s]), st)
+    out = {}
+    for s, part, bh, bw, Ny, Nx in _shapes(h, w, parts):
+        g = grids[s] if part == 0 else grids[s // 2]
+        mvp = _me_mvp(mvp8, s, part)[:, :Ny, :Nx].contiguous()
+        coarse = torch.empty((R, Ny * Nx, 2), dtype=torch.int32, device=dev)
+        _launch("inter_me", "hm_me_argmin", _ptr(g), g.shape[2], g.shape[3],
+                part, R, Ny, Nx, _ptr(mvp), lam, _ptr(coarse), st)
+        mv = torch.empty((R, Ny, Nx, 2), dtype=torch.int32, device=dev)
+        _launch("inter_me", "hm_me_refine", _ptr(cur), h, w, _ptr(refs), R,
+                bh, bw, Ny, Nx, _ptr(coarse), _ptr(mvp), lam, _ptr(mv), st)
+        out[(s, part)] = mv
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6
+# ---------------------------------------------------------------------------
+
+def subpel_planes(refs, bd, h, w):
+    from hm16_2_tpu_torch.encode.inter_plan import MARGIN
+    R = refs.shape[0]
+    _need(refs, torch.int32, (R, h, w), "refs")
+    if not 8 <= bd <= 12:
+        raise ValueError(f"subpel_planes: bit depth {bd} outside 8..12")
+    out = torch.empty((R, 16, h + 2 * MARGIN + 1, w + 2 * MARGIN + 1),
+                      dtype=torch.int16, device=refs.device)
+    _launch("subpel_planes", "hm_subpel_planes", _ptr(refs), R, h, w, bd,
+            _ptr(out), _stream(refs))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7
+# ---------------------------------------------------------------------------
+
+def frac_refine(sub, cur, mv_int, pred4, lams, bh, bw, uref=None,
+                target=None):
+    """mv_int / pred4: (Rb, Ny, Nx, 2); with uref (N,) the block's
+    reference is uref[n] for every batch entry, else the entry's index;
+    target (N, bh, bw) replaces the current plane's blocks."""
+    R, Hp, Wp = sub.shape[0], sub.shape[2], sub.shape[3]
+    Rb, Ny, Nx = mv_int.shape[:3]
+    h, w = cur.shape
+    _need(sub, torch.int16, (R, 16, Hp, Wp), "sub")
+    _need(cur, torch.int32, name="cur")
+    _need(mv_int, torch.int32, (Rb, Ny, Nx, 2), "mv_int")
+    _need(pred4, torch.int32, (Rb, Ny, Nx, 2), "pred4")
+    N = Ny * Nx
+    if uref is not None:
+        _need(uref, torch.int32, (N,), "uref")
+    elif Rb != R:
+        raise ValueError("frac_refine: one batch entry per reference")
+    if target is not None:
+        _need(target, torch.int32, (N, bh, bw), "target")
+    if bh % 8 or bw % 8 or Ny * bh > h or Nx * bw > w:
+        raise ValueError(f"frac_refine: bad block {bh}x{bw}")
+    dev = sub.device
+    mv4 = torch.empty((Rb, N, 2), dtype=torch.int32, device=dev)
+    satd = torch.empty((Rb, N), dtype=torch.float32, device=dev)
+    _launch("inter_uni", "hm_frac_refine", _ptr(sub), Hp, Wp, _ptr(cur), w,
+            _ptr(target), bh, bw, Ny, Nx, Rb, _ptr(mv_int), _ptr(pred4),
+            _ptr(uref), float(np.float32(lams)), _ptr(mv4), _ptr(satd),
+            _stream(sub))
+    return mv4, satd
+
+
+def uni_select(mvq, satd, pred4, lmap, nref, lams):
+    R, N = satd.shape
+    mr = lmap.shape[0]
+    _need(mvq, torch.int32, (R, N, 2), "mvq")
+    _need(satd, torch.float32, (R, N), "satd")
+    _need(pred4, torch.int32, (R, N, 2), "pred4")
+    _need(lmap, torch.int32, (mr,), "lmap")
+    dev = satd.device
+    i32 = lambda *sh: torch.empty(sh, dtype=torch.int32, device=dev)
+    f32 = lambda *sh: torch.empty(sh, dtype=torch.float32, device=dev)
+    out = {"ridx": i32(N), "uref": i32(N), "mv": i32(N, 2), "satd": f32(N),
+           "bits": f32(N), "cost": f32(N), "anchor": i32(N, 2)}
+    _launch("inter_uni", "hm_uni_select", _ptr(mvq), _ptr(satd), _ptr(pred4),
+            _ptr(lmap), mr, int(nref), N, float(np.float32(lams)),
+            *[_ptr(out[k]) for k in ("ridx", "uref", "mv", "satd", "bits",
+                                     "cost", "anchor")], _stream(satd))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8
+# ---------------------------------------------------------------------------
+
+def _uni_res(e, n):
+    for k, dt, sh in (("mv", torch.int32, (n, 2)), ("uref", torch.int32, (n,)),
+                      ("ridx", torch.int32, (n,)),
+                      ("bits", torch.float32, (n,)),
+                      ("cost", torch.float32, (n,))):
+        _need(e[k], dt, sh, k)
+    return UniRes(*[e[k].data_ptr() for k in ("mv", "uref", "ridx", "bits",
+                                              "cost")])
+
+
+def cu_rd(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf, lams, qp, bd,
+          nmerge):
+    from hm16_2_tpu_torch.encode.inter_plan import NREC
+    h, w = cur.shape
+    ny, nx = h // s, w // s
+    N = ny * nx
+    R, Hp, Wp = sub.shape[0], sub.shape[2], sub.shape[3]
+    _need(cur, torch.int32, name="cur")
+    _need(sub, torch.int16, (R, 16, Hp, Wp), "sub")
+    _need(tmvp4, torch.int32, (N, 2), "tmvp4")
+    if s not in (8, 16, 32, 64) or N == 0:
+        raise ValueError(f"cu_rd: bad CU size {s} for {h}x{w}")
+    dev = cur.device
+    t = min(s, 32)
+    tabs = _device_tables(dev)
+    a = CuRdArgs(cur=cur.data_ptr(), h=h, w=w, sub=sub.data_ptr(), Hp=Hp,
+                 Wp=Wp, nx=nx, uni=_uni_res(uni, N), tmvp4=tmvp4.data_ptr(),
+                 ref0=int(ref0), lamf=float(np.float32(lamf)),
+                 lams=float(np.float32(lams)), nmerge=int(nmerge),
+                 tq=_tq_params(t, bd, qp, True, inter=True),
+                 tm=tabs["dct"][t].data_ptr(), model=tabs["model"].data_ptr())
+    if rect is not None:
+        a.has_rect = 1
+        a.rect[0] = _uni_res(rect[1], 2 * N)
+        a.rect[1] = _uni_res(rect[2], 2 * N)
+    if intra is not None:
+        m, c, c3 = intra
+        _need(m, torch.int32, (N,), "imode")
+        _need(c, torch.float32, (N,), "icost")
+        _need(c3, torch.int32, (N, 3), "itop3")
+        a.has_intra = 1
+        a.i_mode, a.i_cost, a.i_top3 = m.data_ptr(), c.data_ptr(), \
+            c3.data_ptr()
+    rec = torch.empty((N, NREC), dtype=torch.int32, device=dev)
+    cost = torch.empty((N,), dtype=torch.float32, device=dev)
+    a.rec, a.cost = rec.data_ptr(), cost.data_ptr()
+    _launch("inter_cu_rd", "hm_cu_rd", ctypes.byref(a), s, N, _stream(cur))
+    return rec, cost
+
+
+# ---------------------------------------------------------------------------
+# K4, P-picture plan
+# ---------------------------------------------------------------------------
+
+def emit_inter_plan(recs, costs, lamf, h, w):
+    from hm16_2_tpu_torch.encode.inter_plan import NREC, PLAN_CHANNELS, \
+        SIZES, SPLIT_BITS
+    dev = next(c.device for c in costs.values() if c is not None)
+    st = _stream(next(c for c in costs.values() if c is not None))
+    lam = float(np.float32(lamf))
+    shape = {s: (h // s, w // s) for s in SIZES}
+    g = InterGrids(h4=h // 4, w4=w // 4)
+    keep = []
+    for i, s in enumerate(SIZES):
+        g.ny[i], g.nx[i] = shape[s]
+        if costs[s] is not None:
+            n = shape[s][0] * shape[s][1]
+            _need(costs[s], torch.float32, (n,), f"cost{s}")
+            _need(recs[s], torch.int32, (n, NREC), f"rec{s}")
+            keep.append(recs[s])
+            g.rec[i] = recs[s].data_ptr()
+
+    def level(child, s):
+        """DP level into size s: its split flags and its updated costs."""
+        hp, wp = shape[s]
+        flag = torch.empty((hp, wp), dtype=torch.uint8, device=dev)
+        out = torch.empty((hp * wp,), dtype=torch.float32, device=dev)
+        _launch("plan_dp", "hm_dp_level", _ptr(child), shape[s // 2][1],
+                _ptr(costs[s]), hp, wp, lam, SPLIT_BITS, 0, _ptr(flag),
+                _ptr(out), st)
+        keep.append(flag)
+        return flag, out
+
+    cu = costs[8]
+    for s, field in ((16, "split16"), (32, "split32"), (64, "split64")):
+        if cu is None or costs[s] is None:
+            break
+        flag, cu = level(cu, s)
+        setattr(g, field, flag.data_ptr())
+    out = torch.empty((PLAN_CHANNELS, h // 4, w // 4), dtype=torch.int16,
+                      device=dev)
+    _launch("plan_dp", "hm_emit_inter_plan", ctypes.byref(g), _ptr(out), st)
     return out

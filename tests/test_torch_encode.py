@@ -1,7 +1,8 @@
-"""The port's all-intra encoder (hm16_2_tpu_torch.encode.top) against the
-JAX package's: the same Annex-B bytes, pictures that decode with their MD5
-hash intact, the refusal of every configuration that is not all-intra, and
-a port that runs with JAX absent.
+"""The port's encoder (hm16_2_tpu_torch.encode.top) against the JAX
+package's: the same Annex-B bytes for all-intra and the P-only structures
+(low-delay P, IPPP, weighted prediction, a pipelined P-only GOP table),
+pictures that decode with their MD5 hash intact, the refusal of every
+configuration that is not ported, and a port that runs with JAX absent.
 """
 
 import difflib
@@ -59,11 +60,11 @@ def test_encode_frame_same_bytes(bits, chroma, rdo):
     _decode_ok(got, 1)
 
 
-@pytest.mark.parametrize("kw", [dict(intra_period=0), dict(intra_period=8),
-                                dict(gop="ra8"), dict(target_bps=200000,
-                                                      total_frames=4),
-                                dict(field_coding=True),
-                                dict(delta_qp_rd=1)])
+@pytest.mark.parametrize("kw", [
+    dict(gop_table=[dict(poc=1, qpoff=1, qpfac=0.5, refs=(-1,), type="B")]),
+    dict(intra_period=-1, gop="ra8"), dict(gop="ra8"),
+    dict(target_bps=200000, total_frames=4), dict(field_coding=True),
+    dict(delta_qp_rd=1)])
 def test_non_intra_configs_refused(kw):
     cfg = dict(intra_period=1)
     cfg.update(kw)
@@ -90,6 +91,13 @@ def test_runs_without_jax():
         "torch.device('cpu'))\n"
         "au = enc.encode_frame([y, c, c.copy()], 0)\n"
         "assert Decoder().decode_stream(au)[0].hash_ok is True\n"
+        "enc = Encoder(EncoderConfig(64, 64, intra_period=8), "
+        "torch.device('cpu'))\n"
+        "y2 = np.roll(y, (1, 2), (0, 1))\n"
+        "aus = [enc.encode_frame([p, c, c.copy()], i)\n"
+        "       for i, p in enumerate((y, y2))]\n"
+        "pics = Decoder().decode_stream(b''.join(aus))\n"
+        "assert [p.hash_ok for p in pics] == [True, True]\n"
         "assert sys.modules['jax'] is None\n"
         "print('ok', len(au))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -117,3 +125,116 @@ def test_encode_one_copy_differs_only_in_plan_block():
     diff = list(difflib.unified_diff(ref_head + ref_tail,
                                      got_head + got_tail, lineterm=""))
     assert not diff, "\n".join(diff)
+
+
+# ---------------------------------------------------------------------------
+# P-only structures
+# ---------------------------------------------------------------------------
+
+def _push_all(enc, frames):
+    aus = []
+    for poc, f in enumerate(frames):
+        aus += enc.push_frame(_planes(f), poc)
+    return aus + enc.flush()
+
+
+def test_ldp_stream_same_bytes():
+    """HM's low-delay P GOP-4 table: IDR + one GOP of four P pictures with
+    four references and the +5/+4/+5/+1 QP ladder."""
+    frames = make_yuv(136, 72, 5, seed=42)
+    cfg = lambda: RT.EncoderConfig(136, 72, qp=32, intra_period=0, gop="ld")
+    ref = _push_all(RT.Encoder(cfg()), frames)
+    enc = PT.Encoder(cfg(), CPU)
+    got = _push_all(enc, frames)
+    assert len(got) == 5 and got == ref
+    assert enc.stage_ms.get("plan", 0) > 0
+    _decode_ok(b"".join(got), 5)
+
+
+def test_ippp_encode_frame_same_bytes():
+    """The flat-QP IPPP entry: one reference per P picture."""
+    frames = make_yuv(136, 72, 3, seed=7)
+    cfg = lambda: RT.EncoderConfig(136, 72, qp=32, intra_period=8)
+    ref_enc, enc = RT.Encoder(cfg()), PT.Encoder(cfg(), CPU)
+    ref = [ref_enc.encode_frame(_planes(f), i) for i, f in enumerate(frames)]
+    got = [enc.encode_frame(_planes(f), i) for i, f in enumerate(frames)]
+    assert got == ref
+    _decode_ok(b"".join(got), 3)
+
+
+def test_weighted_prediction_fade_same_bytes():
+    """The 192x128 fade of test_encode_roundtrip.test_weighted_pred_fade
+    through encode_frame with weighted prediction on: the plan prices the
+    weighted reference planes.  Held to the JAX encoder, so no HM decoder
+    is needed."""
+    rng = np.random.default_rng(3)
+    base = rng.integers(30, 220, (128, 192)).astype(np.float64)
+    base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) / 3
+    frames = []
+    for t in range(4):
+        y = np.clip(base * (1.0 - 0.13 * t), 0, 255).astype(np.int32)
+        u = np.full((64, 96), 128, np.int32)
+        frames.append([y, u, u.copy()])
+    cfg = lambda: RT.EncoderConfig(192, 128, qp=32, intra_period=0,
+                                   weighted_pred=True)
+    ref_enc, enc = RT.Encoder(cfg()), PT.Encoder(cfg(), CPU)
+    ref = [ref_enc.encode_frame(_planes(f), i) for i, f in enumerate(frames)]
+    got = [enc.encode_frame(_planes(f), i) for i, f in enumerate(frames)]
+    assert got == ref
+    _decode_ok(b"".join(got), 4)
+
+
+# P-only table whose third picture does not reference the second: its plan
+# is enqueued before the second picture commits
+_P_TABLE = [dict(poc=1, qpoff=2, qpfac=0.4624, refs=(-1,), type="P",
+                 n_active=1, depth=1),
+            dict(poc=2, qpoff=3, qpfac=0.4624, refs=(-1, -2), type="P",
+                 n_active=2, depth=2),
+            dict(poc=3, qpoff=1, qpfac=0.578, refs=(-2,), type="P",
+                 n_active=1, depth=0)]
+
+
+def test_p_table_predispatch_same_bytes(monkeypatch):
+    frames = make_yuv(136, 72, 4, seed=11)
+    cfg = lambda: RT.EncoderConfig(136, 72, qp=32, intra_period=0,
+                                   gop_table=_P_TABLE)
+    ref = _push_all(RT.Encoder(cfg()), frames)
+    calls = []
+    plan_frame = PT.inter_plan.plan_frame
+
+    def spy(*a, **kw):
+        calls.append(kw.get("fetch", True))
+        return plan_frame(*a, **kw)
+
+    monkeypatch.setattr(PT.inter_plan, "plan_frame", spy)
+    got = _push_all(PT.Encoder(cfg(), CPU), frames)
+    assert calls.count(False) == 1 and calls.count(True) == 2
+    assert got == ref
+    _decode_ok(b"".join(got), 4)
+
+
+@pytest.mark.parametrize("var", ["HM16_NO_INTER_PLAN", "HM16_EXACT_RD"])
+def test_host_only_inter_search_refused(monkeypatch, var):
+    frames = make_yuv(64, 64, 2, seed=1)
+    enc = PT.Encoder(RT.EncoderConfig(64, 64, intra_period=8), CPU)
+    enc.encode_frame(_planes(frames[0]), 0)
+    monkeypatch.setenv(var, "1")
+    with pytest.raises(NotImplementedError):
+        enc.encode_frame(_planes(frames[1]), 1)
+
+
+def test_p_slice_without_plan_refused(monkeypatch):
+    frames = make_yuv(64, 64, 2, seed=1)
+    enc = PT.Encoder(RT.EncoderConfig(64, 64, intra_period=8), CPU)
+    enc.encode_frame(_planes(frames[0]), 0)
+    monkeypatch.setattr(PT.inter_plan, "plan_frame", lambda *a, **k: None)
+    with pytest.raises(NotImplementedError):
+        enc.encode_frame(_planes(frames[1]), 1)
+
+
+def test_b_tail_refused():
+    """The low-delay table's tail pictures are B slices: refused."""
+    frames = make_yuv(64, 64, 3, seed=2)
+    enc = PT.Encoder(RT.EncoderConfig(64, 64, intra_period=0, gop="ld"), CPU)
+    with pytest.raises(NotImplementedError):
+        _push_all(enc, frames)

@@ -43,10 +43,47 @@ def test_encode_on_card_equals_cpu(cuda, bits):
                                 bit_depth=bits)
     kernels.reset_launches()
     on_card = list(Encoder(cfg(), cuda).encode_stream(frames))
-    assert all(v > 0 for v in kernels.LAUNCHES.values())
+    assert all(kernels.LAUNCHES[k] > 0 for k in (
+        "ref_buffers", "intra_size_rd", "intra_cand_rd", "plan_dp"))
     on_cpu = list(Encoder(cfg(), torch.device("cpu")).encode_stream(frames))
     assert on_card == on_cpu
     pics = Decoder().decode_stream(b"".join(on_card))
     assert [p.hash_ok for p in pics] == [True, True]
     frame = [np.ascontiguousarray(p, dtype=np.int32) for p in frames[0]]
     assert Encoder(cfg(), cuda).encode_frame(frame, 0) == on_card[0]
+
+
+@pytest.mark.gpu
+def test_inter_kernels_equal_plain(cuda):
+    """K5-K8, K2 at the inter rounding offset and K4's P-plan emission
+    equal their plain versions at the shapes of a 264x200 P picture with
+    four live references (border CTUs on both axes)."""
+    import chip_smoke
+    frames = make_yuv(264, 200, 5, seed=4)
+    stats = chip_smoke.check_inter_kernels(frames, cuda, reps=1)
+    assert all(v["err"] == 0.0 for v in stats.values())
+
+
+@pytest.mark.gpu
+def test_ldp_on_card_equals_cpu(cuda):
+    """A low-delay P stream (IDR + one GOP of four P pictures) on the card
+    equals the CPU plain path; every kernel of the path was launched."""
+    from hm16_2_tpu.decode.top import Decoder
+    from hm16_2_tpu_torch import kernels
+    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
+    frames = make_yuv(136, 72, 5, seed=8)
+    cfg = lambda: EncoderConfig(136, 72, qp=32, intra_period=0, gop="ld")
+
+    def run(dev):
+        enc, aus = Encoder(cfg(), dev), []
+        for poc, f in enumerate(frames):
+            aus += enc.push_frame([np.ascontiguousarray(p, dtype=np.int32)
+                                   for p in f], poc)
+        return aus + enc.flush()
+
+    kernels.reset_launches()
+    on_card = run(cuda)
+    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert on_card == run(torch.device("cpu"))
+    pics = Decoder().decode_stream(b"".join(on_card))
+    assert [p.hash_ok for p in pics] == [True] * 5
