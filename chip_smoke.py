@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from `hm16_2_tpu_torch/csrc`, holds each
 against its plain PyTorch version on the card at the shapes of a 1920x1080
-all-intra frame and of a 1080p P picture with four live references, then
-drives the port's two paths:
+all-intra frame, of a 1080p P picture with four live references and of a
+1080p B picture with two past and two future references, then drives the
+port's three paths:
 
 - all-intra (HM's common-test All Intra Main configuration: QP 32, 8-bit
   4:2:0, deblocking, SAO, MD5 picture hash) over three 1080p frames through
@@ -14,8 +15,11 @@ drives the port's two paths:
 - low-delay P (HM's Low Delay P Main: GOP 4, four references, QP offsets
   +5/+4/+5/+1 on 32) over five 1080p frames, IDR + one GOP, through
   `push_frame` / `flush`;
+- random access (HM's Random Access Main: hierarchical-B GOP 8, intra
+  period 32, QP 32 with offsets +1..+4 by depth) over nine 1080p frames,
+  IDR + one GOP of eight B pictures, through `push_frame` / `flush`;
 
-decodes both streams and checks every picture hash, and checks small
+decodes the streams and checks every picture hash, and checks small
 encodes on the card against the same encodes on the CPU (whose plain path
 the tests hold to the JAX reference).  Every failure raises; the last line
 of standard output is the device JSON.  Needs a CUDA device and exits
@@ -190,6 +194,23 @@ def _flat(x):
     return (x,)
 
 
+def _case(stats, reps):
+    """A kernel check: run the kernel and its plain version, require equal
+    outputs, time both, add to stats[kernel]; returns the kernel's result."""
+    def case(kernel, label, run_k, run_p, r=reps):
+        got, want = _flat(run_k()), _flat(run_p())
+        err = _compare(f"{kernel} {label}", got, want)
+        ms, pms = _cuda_ms(run_k, r), _cuda_ms(run_p, r)
+        st = stats[kernel]
+        st["err"] = max(st["err"], err)
+        st["ms"] += ms
+        st["plain_ms"] += pms
+        print(f"kernel {kernel:15s} {label:27s} equal  "
+              f"kernel {ms:9.3f} ms  plain {pms:9.3f} ms", flush=True)
+        return run_k()
+    return case
+
+
 def check_inter_kernels(frames, dev, reps=3, stats=None):
     """K5-K8, K2 at the inter rounding offset and K4's P-plan emission
     against their plain versions at the shapes of one P picture: the last
@@ -218,18 +239,7 @@ def check_inter_kernels(frames, dev, reps=3, stats=None):
     for k in K.LAUNCHES:
         stats.setdefault(k, {"err": 0.0, "ms": 0.0, "plain_ms": 0.0})
 
-    def case(kernel, label, run_k, run_p, r=reps):
-        got, want = _flat(run_k()), _flat(run_p())
-        err = _compare(f"{kernel} {label}", got, want)
-        ms, pms = _cuda_ms(run_k, r), _cuda_ms(run_p, r)
-        st = stats[kernel]
-        st["err"] = max(st["err"], err)
-        st["ms"] += ms
-        st["plain_ms"] += pms
-        print(f"kernel {kernel:14s} {label:28s} equal  "
-              f"kernel {ms:9.3f} ms  plain {pms:9.3f} ms", flush=True)
-        return run_k()
-
+    case = _case(stats, reps)
     mvp8 = P._mvp_full(mvn16, dists)
     me = case("inter_me", f"{nref} refs, all CU shapes",
               lambda: K.inter_me(cur, refs, mvp8, lams, H, W, True),
@@ -282,6 +292,96 @@ def check_inter_kernels(frames, dev, reps=3, stats=None):
     return stats
 
 
+def check_b_kernels(frames, dev, reps=3, stats=None,
+                    lists=((0, 1), (2, 3))):
+    """K7's bi-refinement mode, K8's B mode, the list picks of both lists
+    and K4's emission of B records against their plain versions at the
+    shapes of one B picture: frames[2] between the past frames 1, 0 and the
+    future frames 3, 4 (signed POC distances 1, 2, -1, -2), QP 34, a
+    synthetic motion prior.  lists: list 0 and list 1 as indices into those
+    four references (the default: two past, two future; ((0,), (0,)) is the
+    GPB case, one reference in both lists).  Each kernel runs on the other
+    kernels' outputs.  Adds to `stats`."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import inter_plan as P
+
+    H, W = frames[2][0].shape
+    qp = QP + 2
+    order = sorted({i for lst in lists for i in lst})
+    cur = torch.from_numpy(frames[2][0].astype("int32")).to(dev)
+    refs = torch.from_numpy(np.stack([frames[(1, 0, 3, 4)[i]][0]
+                                      for i in order]).astype("int32")).to(dev)
+    dists = torch.as_tensor([(1, 2, -1, -2)[i] for i in order],
+                            dtype=torch.int32, device=dev)
+    maps = [torch.as_tensor([order.index(i) for i in lst] +
+                            [0] * (P.MAXREF_PLAN - len(lst)),
+                            dtype=torch.int32, device=dev) for lst in lists]
+    nref = [len(lst) for lst in lists]
+    first = [order.index(lst[0]) for lst in lists]
+    rng = np.random.default_rng(11)
+    mvn16 = torch.from_numpy(rng.integers(-96, 96, (H // 8, W // 8, 2))
+                             .astype("int32")).to(dev)
+    lam = 0.3536 * 2.0 ** ((qp - 12) / 3.0)
+    lamf, lams = float(np.float32(lam)), float(np.float32(np.sqrt(lam)))
+    if stats is None:
+        stats = {}
+    for k in K.LAUNCHES:
+        stats.setdefault(k, {"err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+    case = _case(stats, reps)
+    mvp8 = P._mvp_full(mvn16, dists)
+    me = K.inter_me(cur, refs, mvp8, lams, H, W, True)
+    sub = K.subpel_planes(refs, 8, H, W)
+    recs, costs = {}, {}
+    for s in P.SIZES:
+        ny, nx = H // s, W // s
+        recs[s] = costs[s] = None
+        if not (ny and nx):
+            continue
+        shapes = [(0, s, s, ny, nx)]
+        if (s, 1) in me:
+            shapes += [(1, s // 2, s, 2 * ny, nx), (2, s, s // 2, ny, 2 * nx)]
+        unis = {}
+        for part, bh, bw, Ny, Nx in shapes:
+            p4 = (4 * P._me_mvp(mvp8, s, part)[:, :Ny, :Nx]).contiguous()
+            mvq, satd = K.frac_refine(sub, cur, me[(s, part)], p4, lams, bh,
+                                      bw)
+            p4 = p4.reshape(len(order), -1, 2)
+            if part == 0:
+                tmvp4 = [p4[f].contiguous() for f in first]
+            unis[part] = [case(
+                "inter_uni", f"list {lx} pick {bh}x{bw}",
+                lambda: K.uni_select(mvq, satd, p4, maps[lx], nref[lx], lams),
+                lambda: P._uni_select_plain(mvq, satd, p4, maps[lx],
+                                            nref[lx], lams))
+                for lx in (0, 1)]
+        u0, u1 = unis[0]
+        a1 = (sub, cur, u1["mv"], u1["uref"], u1["anchor"], u0["uref"],
+              u0["mv"], lams, s)
+        mv1b = case("inter_bi_refine", f"list 1 pass {s}x{s}",
+                    lambda: K.frac_refine_any(*a1),
+                    lambda: P._frac_refine_any_plain(*a1))[0]
+        a0 = (sub, cur, u0["mv"], u0["uref"], u0["anchor"], u1["uref"], mv1b,
+              lams, s)
+        mv0b = case("inter_bi_refine", f"list 0 pass {s}x{s}",
+                    lambda: K.frac_refine_any(*a0),
+                    lambda: P._frac_refine_any_plain(*a0))[0]
+        intra = None
+        if s <= 32:
+            bufs, blocks = K.ref_buffers(cur, s, 8, True, H, W)
+            intra = K.intra_size_rd(bufs, blocks, lamf, s, 8, 3, qp, True,
+                                    False, False, True)[:3]
+        rect = {1: unis[1], 2: unis[2]} if 1 in unis else None
+        cargs = (cur, sub, s, unis[0], tmvp4, first, nref, [mv0b, mv1b],
+                 rect, intra, lamf, lams, qp, 8, 5)
+        recs[s], costs[s] = case("inter_cu_rd_b", f"B CU pricing s={s}",
+                                 lambda: K.cu_rd_b(*cargs),
+                                 lambda: P._cu_rd_b_plain(*cargs))
+    case("plan_dp", "B plan DP + packed plan",
+         lambda: K.emit_inter_plan(recs, costs, lamf, H, W),
+         lambda: P._emit_plain(recs, costs, lamf, H, W))
+    return stats
+
+
 SOURCES = {
     "ref_buffers": ("ref_buffers.cu", "hm16_2_tpu/encode/intra_rd.py:317"),
     "intra_size_rd": ("intra_rd.cu", "hm16_2_tpu/encode/intra_rd.py:172"),
@@ -290,8 +390,11 @@ SOURCES = {
     "inter_me": ("inter_me.cu", "hm16_2_tpu/encode/inter_plan.py:209"),
     "subpel_planes": ("subpel.cu", "hm16_2_tpu/encode/inter_plan.py:294"),
     "inter_uni": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:362"),
+    "inter_bi_refine": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:401"),
     "inter_cu_rd": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:444"),
+    "inter_cu_rd_b": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:444"),
 }
+B_ONLY = ("inter_bi_refine", "inter_cu_rd_b")     # kernels of B pictures only
 
 
 def _launches_of(K, run, label, need):
@@ -364,7 +467,8 @@ def ldp_phase(frames, dev):
                             for k, v in enc.stage_ms.items()}
         return aus
 
-    aus, counts = _launches_of(K, run, f"LDP {W}x{H}", list(K.LAUNCHES))
+    aus, counts = _launches_of(K, run, f"LDP {W}x{H}",
+                               [k for k in K.LAUNCHES if k not in B_ONLY])
     n_p = len(frames) - 1
     print(f"LDP {W}x{H} QP{QP} GOP4: {len(aus)} pictures; IDR "
           f"{times['idr']:.3f} s; {n_p} P pictures in {times['p']:.3f} s = "
@@ -373,6 +477,71 @@ def ldp_phase(frames, dev):
     print("stage_ms per P picture: " + json.dumps(
         {k: round(v / n_p, 3) for k, v in times["stage_p"].items()}),
         flush=True)
+    return aus, counts
+
+
+def ra_phase(frames, dev):
+    """HM's Random Access Main over IDR + one GOP of eight B pictures through
+    push_frame / flush; prints fps over the B pictures, their stage_ms, the
+    number of plans enqueued ahead (pictures 3, 6, 7) and the device busy
+    share of the B pictures (torch.profiler, device activity only).
+    Returns the AUs and the launch counts."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
+    H, W = frames[0][0].shape
+    enc = Encoder(EncoderConfig(W, H, qp=QP, intra_period=32, gop="ra8"), dev)
+    ahead = []
+    predispatch = enc._predispatch_ra
+
+    def counted(planes, poc, *a, **kw):
+        out = predispatch(planes, poc, *a, **kw)
+        if out is not None:
+            ahead.append(poc)
+        return out
+
+    enc._predispatch_ra = counted
+    times = {}
+
+    def run():
+        t0 = time.perf_counter()
+        aus = enc.push_frame([p.astype("int32") for p in frames[0]], 0)
+        torch.cuda.synchronize()
+        times["idr"] = time.perf_counter() - t0
+        idr_ms = dict(enc.stage_ms)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for poc in range(1, len(frames)):
+                aus += enc.push_frame(
+                    [p.astype("int32") for p in frames[poc]], poc)
+            aus += enc.flush()
+            torch.cuda.synchronize()
+            times["b"] = time.perf_counter() - t1
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        print(f"profile of the B pictures: device busy {busy:.3f} ms of "
+              f"{times['b'] * 1e3:.3f} ms wall = "
+              f"{100 * busy / (times['b'] * 1e3):.3f}%", flush=True)
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
+            print(f"  {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.3f}"
+                  f" ms  x{e.count}", flush=True)
+        times["stage_b"] = {k: v - idr_ms.get(k, 0.0)
+                            for k, v in enc.stage_ms.items()}
+        return aus
+
+    aus, counts = _launches_of(K, run, f"RA {W}x{H}",
+                               [k for k in K.LAUNCHES if k != "inter_cu_rd"])
+    n_b = len(frames) - 1
+    print(f"RA {W}x{H} QP{QP} GOP8: {len(aus)} pictures; IDR "
+          f"{times['idr']:.3f} s; {n_b} B pictures in {times['b']:.3f} s = "
+          f"{n_b / times['b']:.3f} fps; plans enqueued ahead for POCs "
+          f"{ahead}; bytes {[len(a) for a in aus]}", flush=True)
+    print("stage_ms per B picture: " + json.dumps(
+        {k: round(v / n_b, 3) for k, v in times["stage_b"].items()}),
+        flush=True)
+    if sorted(ahead) != [3, 6, 7]:
+        raise AssertionError(f"RA: plans enqueued ahead for {ahead}, not for "
+                             "POCs 3, 6 and 7")
     return aus, counts
 
 
@@ -396,13 +565,14 @@ def main():
         raise AssertionError("native commit engine did not build")
 
     t0 = time.perf_counter()
-    frames = [[p.copy() for p in f] for f in _frames(W, H, 6)]
+    frames = [[p.copy() for p in f] for f in _frames(W, H, 9)]
     print(f"frames {W}x{H} made in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     dev = torch.device("cuda")
     stats = check_kernels(frames[0], dev)
     check_inter_kernels(frames[1:6], dev, stats=stats)
+    check_b_kernels(frames[:5], dev, stats=stats)
 
     # all-intra: warm-up frame, then a timed 3-frame encode_stream
     from hm16_2_tpu_torch.encode.intra_rd import fetch_plan
@@ -437,7 +607,11 @@ def main():
     ldp_aus, ldp_counts = ldp_phase(frames[:5], dev)
     _decode_check(ldp_aus, 5, "LDP")
 
-    small = _frames(136, 72, 5)
+    # random access: IDR + one GOP of eight B pictures
+    ra_aus, ra_counts = ra_phase(frames, dev)
+    _decode_check(ra_aus, 9, "RA")
+
+    small = _frames(136, 72, 9)
     cfg_s = lambda: EncoderConfig(136, 72, qp=QP, intra_period=1)
     on_card = list(Encoder(cfg_s(), dev).encode_stream(small[:3]))
     on_cpu = list(Encoder(cfg_s(), torch.device("cpu"))
@@ -448,12 +622,20 @@ def main():
     print("136x72 3-frame AI encode: card bytes equal CPU plain-path bytes",
           flush=True)
     cfg_p = lambda: EncoderConfig(136, 72, qp=QP, intra_period=0, gop="ld")
-    on_card = _push_all(Encoder(cfg_p(), dev), small)
-    on_cpu = _push_all(Encoder(cfg_p(), torch.device("cpu")), small)
+    on_card = _push_all(Encoder(cfg_p(), dev), small[:5])
+    on_cpu = _push_all(Encoder(cfg_p(), torch.device("cpu")), small[:5])
     if on_card != on_cpu:
         raise AssertionError("136x72 LDP encode on the card differs from the "
                              "CPU")
     print("136x72 5-frame LDP encode: card bytes equal CPU plain-path bytes",
+          flush=True)
+    cfg_r = lambda: EncoderConfig(136, 72, qp=QP, intra_period=32, gop="ra8")
+    on_card = _push_all(Encoder(cfg_r(), dev), small)
+    on_cpu = _push_all(Encoder(cfg_r(), torch.device("cpu")), small)
+    if on_card != on_cpu:
+        raise AssertionError("136x72 RA encode on the card differs from the "
+                             "CPU")
+    print("136x72 9-frame RA encode: card bytes equal CPU plain-path bytes",
           flush=True)
 
     if "jax" in sys.modules:
@@ -464,7 +646,7 @@ def main():
         {"name": k, "route": "cuda",
          "source": f"hm16_2_tpu_torch/csrc/{SOURCES[k][0]}",
          "replaces": SOURCES[k][1],
-         "launches": ai_counts[k] + ldp_counts[k],
+         "launches": ai_counts[k] + ldp_counts[k] + ra_counts[k],
          "max_abs_err": stats[k]["err"], "ms": stats[k]["ms"],
          "plain_ms": stats[k]["plain_ms"]} for k in K.LAUNCHES]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,34 +1,41 @@
-// K7 inter_uni and K8 inter_cu_rd: the per-CU pricing of the P-picture
-// plan.
+// K7 inter_uni and K8 inter_cu_rd: the per-CU pricing of the P- and
+// B-picture plans.
 //
 // K7 replaces `_frac_refine` and `_gather_pred` (hm16_2_tpu/encode/
 // inter_plan.py:340-398) and the per-list best reference (:498-548, rect
 // PUs :822-873): 49 quarter-pel SATDs + lams * MVD bins around each
 // (reference, block)'s integer MV, read from the 16 phase planes; then, per
 // block, the list entry with the least SATD + lams * (MVD + reference +
-// direction bins), entries past nref masked.  The refinement takes an
-// optional reference index per block, so the B-slice refinement
-// (`_frac_refine_any`, :401) can reuse it.
+// direction bins), entries past nref masked.  Its per-block-reference mode
+// (launch count `inter_bi_refine`) replaces `_frac_refine_any` (:401-433),
+// one pass of the B plan's bi refinement: a quarter-pel start MV, one
+// reference per block, and the bi target against the other list's
+// prediction.
 //
-// K8 replaces the rest of `_plan_device`'s per-size body (:553-934): the P
-// merge set (left and above neighbours' list winners, the prior, zero),
+// K8 replaces the rest of `_plan_device`'s per-size body (:553-934).  P mode:
+// the merge set (left and above neighbours' list winners, the prior, zero),
 // merge against uni-prediction, the residual trial of the winner (one TU
 // for s <= 32, four 32x32 TUs at 64) and its zero-residual alternative,
 // the 2NxN / Nx2N shapes with their composite prediction and trial, and the
-// comparison with the intra alternative (K2's cost).  It writes one record
-// of REC_FIELDS and one cost per CU.
+// comparison with the intra alternative (K2's cost).  B mode (launch count
+// `inter_cu_rd_b`, the reference with is_b=True): six bi merge candidates
+// (A1 / B1 / B0 / A0 rolls with edge masks, the priors, zero), the kinds
+// merge / uni-L0 / uni-L1 / bi where bi is the list winners' average or the
+// pair refined by K7 where strictly cheaper, and each rect PU from the
+// cheaper list.  It writes one record of REC_FIELDS and one cost per CU.
 //
 // What bounds them: integer ALU work.  K7 does 49 8x8 Hadamards per
-// (reference, 8x8 tile); K8 four candidate SATDs and up to three transform
-// trials per CU.  Design, simple first: K7 is one CTA per (block,
-// reference) with one 8x8 tile of one candidate per thread and integer
-// atomics into 49 shared sums; K8 is one CTA per CU reading the
+// (reference, 8x8 tile); K8 four (P) or eight (B) candidate SATDs and up to
+// three transform trials per CU.  Design, simple first: K7 is one CTA per
+// (block, reference) with one 8x8 tile of one candidate per thread and
+// integer atomics into 49 shared sums; K8 is one CTA per CU reading the
 // neighbours' K7 results from global memory, with the trial's transforms
 // in shared memory (intra_common.cuh's chain, one TU at a time).  Float
-// steps follow XLA:CPU's rounding of the reference program (file built with
-// --fmad=false): fused multiply-adds where XLA fuses (`__fmaf_rn`), a
-// separately rounded scalar product in the merge and intra-extra costs;
-// argmins keep the lowest index, the merge update is a strict <.
+// steps follow XLA:CPU's rounding of the reference programs (file built
+// with --fmad=false): fused multiply-adds where XLA fuses (`__fmaf_rn`: the
+// refinement, list-pick, bi and trial costs), a separately rounded scalar
+// product in the merge and intra-extra costs; argmins keep the lowest
+// index, the merge update is a strict <.
 #include "intra_common.cuh"
 
 namespace hm {
@@ -57,15 +64,27 @@ __device__ __forceinline__ PredAt pred_at(const short* sub, int Hp, int Wp,
 // ---------------------------------------------------------------------------
 
 // grid (N, Rb): block n of batch entry rb; its reference is uref[n] when
-// given, else rb.  mv_int / pred4: (Rb, N, 2) full-pel MV / quarter-pel
-// MVD anchor; target: (N, bh, bw) int32 when given, else the current plane.
+// given, else rb.  mv: (Rb, N, 2) full-pel MV, or, with qstart, a
+// quarter-pel MV whose window centres on mv >> 2 (arithmetic: floors toward
+// -inf); pred4: (Rb, N, 2) quarter-pel MVD anchor.  The block is matched
+// against the current plane, or, when o_uref is given (the bi refinement),
+// against the bi target 2 * orig - pred(o_uref[n], o_mv4[n]).
+//
+// The bi target is formed here from the other list's hypothesis, not
+// materialised by the caller: a materialised target would be one (N, s, s)
+// int32 tensor written and read back per pass plus a gather launch, while
+// here it costs one more int16 read of the phase planes per sample (the
+// same planes the candidates read, so mostly cache hits).  Its range is
+// [-maxv, 2 * maxv] and a difference to a prediction [-2 * maxv, 2 * maxv]:
+// int32 throughout.
 __global__ void frac_refine_kernel(const short* __restrict__ sub, int Hp,
                                    int Wp, const int* __restrict__ cur, int w,
-                                   const int* __restrict__ target, int bh,
-                                   int bw, int Nx,
-                                   const int* __restrict__ mv_int,
+                                   int bh, int bw, int Nx,
+                                   const int* __restrict__ mv, int qstart,
                                    const int* __restrict__ pred4,
-                                   const int* __restrict__ uref, float lam,
+                                   const int* __restrict__ uref,
+                                   const int* __restrict__ o_uref,
+                                   const int* __restrict__ o_mv4, float lam,
                                    int* __restrict__ mv4,
                                    float* __restrict__ satd_out) {
   __shared__ int satd[49];
@@ -75,7 +94,14 @@ __global__ void frac_refine_kernel(const short* __restrict__ sub, int Hp,
   for (int q = threadIdx.x; q < 49; q += blockDim.x) satd[q] = 0;
   __syncthreads();
   int by = (n / Nx) * bh, bx = (n % Nx) * bw;
-  int my = mv_int[e * 2], mx = mv_int[e * 2 + 1];
+  int my = mv[e * 2], mx = mv[e * 2 + 1];
+  if (qstart) {
+    my >>= 2;
+    mx >>= 2;
+  }
+  const bool bi = o_uref != nullptr;
+  PredAt po{};
+  if (bi) po = pred_at(sub, Hp, Wp, o_uref[n], o_mv4[n * 2], o_mv4[n * 2 + 1], by, bx);
   int tw = bw / 8, ntiles = (bh / 8) * tw;
   for (int t = threadIdx.x; t < 49 * ntiles; t += blockDim.x) {
     int k = t / ntiles, tile = t % ntiles;
@@ -87,8 +113,8 @@ __global__ void frac_refine_kernel(const short* __restrict__ sub, int Hp,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        int o = target ? target[((size_t)n * bh + ty + i) * bw + tx + j]
-                       : cur[(size_t)(by + ty + i) * w + bx + tx + j];
+        int o = cur[(size_t)(by + ty + i) * w + bx + tx + j];
+        if (bi) o = 2 * o - po.at(ty + i, tx + j);
         v[i * 8 + j] = o - p.at(ty + i, tx + j);
       }
     atomicAdd(&satd[k], satd8x8(v));
@@ -162,10 +188,10 @@ struct CuRdArgs {
   const short* sub;
   int Hp, Wp;
   int nx;
-  UniRes uni;                    // squares of size s
+  UniRes uni;                    // list 0's squares of size s
   const int* tmvp4;              // (N, 2) prior on list 0's first entry
-  int ref0;
-  UniRes rect[2];                // 2NxN, Nx2N PUs (has_rect)
+  int ref0;                      // list 0's first entry
+  UniRes rect[2];                // list 0's 2NxN, Nx2N PUs (has_rect)
   int has_rect;
   const int *i_mode, *i_top3;    // intra alternative (has_intra)
   const float* i_cost;
@@ -177,17 +203,32 @@ struct CuRdArgs {
   const float* model;
   int* rec;                      // (N, 24)
   float* cost;                   // (N,)
+  // B mode only
+  UniRes uni1;                   // list 1's squares
+  const int* tmvp4_1;            // (N, 2) prior on list 1's first entry
+  int ref1;                      // list 1's first entry
+  UniRes rect1[2];               // list 1's rect PUs (has_rect)
+  const int *anchor0, *anchor1;  // (N, 2) MVD anchors of the list winners
+  const int *mvb0, *mvb1;        // (N, 2) bi-refined MVs (K7 refine-any)
+  int nref0, nref1;              // live entries per list
 };
 
-// a motion hypothesis covering the CU: one (uref, mv) per half (equal
-// halves for a 2Nx2N prediction); part 1 splits rows, part 2 columns
+// a motion hypothesis covering the CU.  bi: the average of hypotheses 0
+// (list 0) and 1 (list 1) over the whole CU; else one (uref, mv) per half
+// (equal halves for a 2Nx2N prediction), part 1 splitting rows, part 2
+// columns
 struct Hyp {
-  int part, uref[2], mvy[2], mvx[2];
+  int part, bi, uref[2], mvy[2], mvx[2];
 };
 
 template <int S>
 __device__ __forceinline__ int hyp_pred(const CuRdArgs& a, const Hyp& hp,
                                         int y0, int x0, int i, int j) {
+  if (hp.bi) {
+    int p0 = pred_at(a.sub, a.Hp, a.Wp, hp.uref[0], hp.mvy[0], hp.mvx[0], y0, x0).at(i, j);
+    int p1 = pred_at(a.sub, a.Hp, a.Wp, hp.uref[1], hp.mvy[1], hp.mvx[1], y0, x0).at(i, j);
+    return (p0 + p1 + 1) >> 1;
+  }
   int k = hp.part == 1 ? (i >= S / 2) : hp.part == 2 ? (j >= S / 2) : 0;
   PredAt p = pred_at(a.sub, a.Hp, a.Wp, hp.uref[k], hp.mvy[k], hp.mvx[k],
                      y0, x0);
@@ -259,14 +300,36 @@ __device__ void cu_trial(const CuRdArgs& a, const Hyp& hp, int y0, int x0,
   __syncthreads();
 }
 
-template <int S>
+__device__ __forceinline__ void set_hyp(Hyp& hp, int l, const UniRes& u,
+                                        int k) {
+  hp.uref[l] = u.uref[k];
+  hp.mvy[l] = u.mv[k * 2];
+  hp.mvx[l] = u.mv[k * 2 + 1];
+}
+
+// reference-index bins of a list entry: min(ridx + 1, nref - 1), or 0 for
+// a list with one live entry
+__device__ __forceinline__ float ref_bits(int ridx, int nref) {
+  return nref > 1 ? __int2float_rn(min(ridx + 1, nref - 1)) : 0.f;
+}
+
+// one CTA per CU of size S.  P mode (B false): the merge set is the left
+// and above neighbours' list-0 winners, the prior, zero; the kinds merge and
+// uni-L0.  B mode: six bi merge candidates (the A1 / B1 / B0 / A0
+// neighbours' winners of both lists, the priors, zero), the kinds merge,
+// uni-L0, uni-L1 and bi (the list winners' average, or the refined pair
+// where strictly cheaper), and rect PUs from the cheaper list.
+template <int S, bool B>
 __global__ void __launch_bounds__(kThreads) cu_rd_kernel(CuRdArgs a) {
   constexpr int T = S < 32 ? S : 32;
+  constexpr int NL = B ? 2 : 1;              // reference lists
+  constexpr int NR = B ? 4 : 2;              // rolled neighbours
   __shared__ BlockSmem<T, 1> sm;
   __shared__ int sacc;
   __shared__ unsigned int zacc;
   __shared__ float t_sr, t_br, t_sz;
   const int n = blockIdx.x, N = gridDim.x;
+  const int ny = N / a.nx;
   const int ci = n / a.nx, cj = n % a.nx, y0 = ci * S, x0 = cj * S;
   for (int q = threadIdx.x; q < T * T; q += blockDim.x) sm.tm[q] = a.tm[q];
   if (threadIdx.x == 0) {
@@ -276,81 +339,137 @@ __global__ void __launch_bounds__(kThreads) cu_rd_kernel(CuRdArgs a) {
   }
   __syncthreads();
 
-  // ---- merge set: left, above, prior, zero; strict < keeps the first ----
+  // ---- merge set; strict < keeps the first ----
+  const int roll_dy[4] = {0, 1, 1, -1}, roll_dx[4] = {1, 0, -1, 1};
   float m_cost = 0.f, m_bits = 0.f;
-  int m_sel = 0;
+  int m_sel = 0, m_ridx[2] = {0, 0};
   Hyp m_hyp{};
-  int m_ridx = 0;
-  for (int m = 0; m < 4; ++m) {
+  for (int m = 0; m < NR + 2; ++m) {
     Hyp hp{};
-    int ridx = 0;
+    hp.bi = B;
+    int ridx[2] = {0, 0};
     bool invalid = false;
-    if (m < 2) {
-      int nb = m == 0 ? (cj > 0 ? n - 1 : n + a.nx - 1)
-                      : (ci > 0 ? n - a.nx : n + (N - a.nx));
-      invalid = m == 0 ? cj == 0 : ci == 0;
-      hp.uref[0] = a.uni.uref[nb];
-      hp.mvy[0] = a.uni.mv[nb * 2];
-      hp.mvx[0] = a.uni.mv[nb * 2 + 1];
-      ridx = a.uni.ridx[nb];
+    if (m < NR) {
+      // torch.roll / jnp.roll by (dy, dx): the CU reads the winner at
+      // (ci - dy, cj - dx), wrapped; a wrapped read is invalid
+      int dy = roll_dy[m], dx = roll_dx[m];
+      int nb = ((ci - dy + ny) % ny) * a.nx + (cj - dx + a.nx) % a.nx;
+      invalid = (dy > 0 && ci == 0) || (dy < 0 && ci == ny - 1) ||
+                (dx > 0 && cj == 0) || (dx < 0 && cj == a.nx - 1);
+      for (int l = 0; l < NL; ++l) {
+        const UniRes& u = l ? a.uni1 : a.uni;
+        set_hyp(hp, l, u, nb);
+        ridx[l] = u.ridx[nb];
+      }
     } else {
+      bool prior = m == NR;
       hp.uref[0] = a.ref0;
-      hp.mvy[0] = m == 2 ? a.tmvp4[n * 2] : 0;
-      hp.mvx[0] = m == 2 ? a.tmvp4[n * 2 + 1] : 0;
+      hp.mvy[0] = prior ? a.tmvp4[n * 2] : 0;
+      hp.mvx[0] = prior ? a.tmvp4[n * 2 + 1] : 0;
+      if (B) {
+        hp.uref[1] = a.ref1;
+        hp.mvy[1] = prior ? a.tmvp4_1[n * 2] : 0;
+        hp.mvx[1] = prior ? a.tmvp4_1[n * 2 + 1] : 0;
+      }
     }
     int satd = cu_satd<S>(a, hp, y0, x0, &sacc);
     float bits = __fadd_rn(__int2float_rn(min(m + 1, a.nmerge - 1) + 1), 1.0f);
     float c = __fadd_rn(__fadd_rn(__int2float_rn(satd), __fmul_rn(a.lams, bits)),
                         invalid ? inf_f() : 0.f);
     if (m == 0 || c < m_cost) {
-      m_cost = c; m_bits = bits; m_sel = m; m_hyp = hp; m_ridx = ridx;
+      m_cost = c; m_bits = bits; m_sel = m; m_hyp = hp;
+      m_ridx[0] = ridx[0];
+      m_ridx[1] = ridx[1];
     }
   }
 
-  // ---- kind: uni-L0 only when strictly cheaper ----
-  bool use_uni = a.uni.cost[n] < m_cost;
+  // ---- kind: the first least of merge, uni-L0 (, uni-L1, bi) ----
+  int kind = 0;
+  float kcost = m_cost, bits_motion = m_bits;
   Hyp best = m_hyp;
-  int ref0c = m_ridx;
-  float bits_motion = m_bits;
-  if (use_uni) {
-    best.uref[0] = a.uni.uref[n];
-    best.mvy[0] = a.uni.mv[n * 2];
-    best.mvx[0] = a.uni.mv[n * 2 + 1];
-    ref0c = a.uni.ridx[n];
-    bits_motion = a.uni.bits[n];
+  int mv0y = m_hyp.mvy[0], mv0x = m_hyp.mvx[0], mv1y = 0, mv1x = 0;
+  int ref0c = m_ridx[0], ref1c = -1, dirv = B ? 3 : 1;
+  if (B) {
+    mv1y = m_hyp.mvy[1];
+    mv1x = m_hyp.mvx[1];
+    ref1c = m_ridx[1];
+  }
+  if (a.uni.cost[n] < kcost) {
+    kind = 1; kcost = a.uni.cost[n]; bits_motion = a.uni.bits[n];
+    best = Hyp{};
+    set_hyp(best, 0, a.uni, n);
+    mv0y = best.mvy[0]; mv0x = best.mvx[0]; mv1y = mv1x = 0;
+    ref0c = a.uni.ridx[n]; ref1c = -1; dirv = 1;
+  }
+  if (B) {
+    if (a.uni1.cost[n] < kcost) {
+      kind = 2; kcost = a.uni1.cost[n]; bits_motion = a.uni1.bits[n];
+      best = Hyp{};
+      set_hyp(best, 0, a.uni1, n);
+      mv0y = mv0x = 0; mv1y = best.mvy[0]; mv1x = best.mvx[0];
+      ref0c = -1; ref1c = a.uni1.ridx[n]; dirv = 2;
+    }
+    // bi from the two list winners, and from the refined pair
+    Hyp hb{};
+    hb.bi = 1;
+    set_hyp(hb, 0, a.uni, n);
+    set_hyp(hb, 1, a.uni1, n);
+    float bb = __fadd_rn(__fadd_rn(a.uni.bits[n], a.uni1.bits[n]), -2.0f);
+    float cb = __fmaf_rn(a.lams, bb, __int2float_rn(cu_satd<S>(a, hb, y0, x0, &sacc)));
+    Hyp hi = hb;
+    hi.mvy[0] = a.mvb0[n * 2]; hi.mvx[0] = a.mvb0[n * 2 + 1];
+    hi.mvy[1] = a.mvb1[n * 2]; hi.mvx[1] = a.mvb1[n * 2 + 1];
+    float mb = __fadd_rn(
+        mvd_bits(hi.mvx[0] - a.anchor0[n * 2 + 1], hi.mvy[0] - a.anchor0[n * 2]),
+        mvd_bits(hi.mvx[1] - a.anchor1[n * 2 + 1], hi.mvy[1] - a.anchor1[n * 2]));
+    float bi_it = __fadd_rn(__fadd_rn(__fadd_rn(mb, ref_bits(a.uni.ridx[n], a.nref0)),
+                                      ref_bits(a.uni1.ridx[n], a.nref1)), 6.0f);
+    float ci_ = __fmaf_rn(a.lams, bi_it, __int2float_rn(cu_satd<S>(a, hi, y0, x0, &sacc)));
+    bool it = ci_ < cb;
+    if ((it ? ci_ : cb) < kcost) {
+      kind = 3; bits_motion = it ? bi_it : bb;
+      best = it ? hi : hb;
+      mv0y = best.mvy[0]; mv0x = best.mvx[0];
+      mv1y = best.mvy[1]; mv1x = best.mvx[1];
+      ref0c = a.uni.ridx[n]; ref1c = a.uni1.ridx[n]; dirv = 3;
+    }
   }
   best.part = 0;
+  const bool is_merge = kind == 0;
   cu_trial<S>(a, best, y0, x0, sm, &zacc, &t_sr, &t_br, &t_sz);
   float cost_coded = __fmaf_rn(a.lamf, __fadd_rn(__fadd_rn(t_br, bits_motion), 2.0f), t_sr);
-  float bits_zero = __fsub_rn(__fadd_rn(bits_motion, use_uni ? 1.0f : 0.0f), 0.0f);
+  float bits_zero = __fsub_rn(__fadd_rn(bits_motion, is_merge ? 0.0f : 1.0f), 0.0f);
   float cost_zero = __fmaf_rn(a.lamf, bits_zero, t_sz);
   bool skip = cost_zero <= cost_coded;
   float inter = fminf(cost_coded, cost_zero);
 
-  // ---- 2NxN / Nx2N ----
+  // ---- 2NxN / Nx2N; in B mode each PU takes list 1 where strictly
+  // cheaper ----
   int part_ch = 0;
   int pu[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   if (a.has_rect) {
     float rc[2];
     int pus[2][8];
     for (int pi = 0; pi < 2; ++pi) {
-      const UniRes& e = a.rect[pi];
       int k0, k1;
       if (pi == 0) { k0 = (2 * ci) * a.nx + cj; k1 = k0 + a.nx; }
       else { k0 = ci * 2 * a.nx + 2 * cj; k1 = k0 + 1; }
       Hyp hp{};
       hp.part = pi + 1;
       int ks[2] = {k0, k1};
+      float pb[2];
       for (int u = 0; u < 2; ++u) {
-        hp.uref[u] = e.uref[ks[u]];
-        hp.mvy[u] = e.mv[ks[u] * 2];
-        hp.mvx[u] = e.mv[ks[u] * 2 + 1];
-        pus[pi][u * 4] = 1;
+        int k = ks[u];
+        bool use1 = B && a.rect1[pi].cost[k] < a.rect[pi].cost[k];
+        const UniRes& e = use1 ? a.rect1[pi] : a.rect[pi];
+        set_hyp(hp, u, e, k);
+        pb[u] = e.bits[k];
+        pus[pi][u * 4] = use1 ? 2 : 1;
         pus[pi][u * 4 + 1] = hp.mvy[u];
         pus[pi][u * 4 + 2] = hp.mvx[u];
-        pus[pi][u * 4 + 3] = e.ridx[ks[u]];
+        pus[pi][u * 4 + 3] = e.ridx[k];
       }
-      float bits_cu = __fadd_rn(__fadd_rn(e.bits[k0], e.bits[k1]), 1.5f);
+      float bits_cu = __fadd_rn(__fadd_rn(pb[0], pb[1]), 1.5f);
       cu_trial<S>(a, hp, y0, x0, sm, &zacc, &t_sr, &t_br, &t_sz);
       float cc = __fmaf_rn(a.lamf, __fadd_rn(__fadd_rn(t_br, bits_cu), 2.0f), t_sr);
       float cz = __fmaf_rn(a.lamf, __fadd_rn(bits_cu, 1.0f), t_sz);
@@ -376,8 +495,8 @@ __global__ void __launch_bounds__(kThreads) cu_rd_kernel(CuRdArgs a) {
 
   if (threadIdx.x == 0) {
     int* r = a.rec + (size_t)n * 24;
-    int vals[24] = {use_uni ? 1 : 0, m_sel, 1, skip ? 1 : 0, intra, imode,
-                    best.mvy[0], best.mvx[0], 0, 0, ref0c, -1,
+    int vals[24] = {kind, m_sel, dirv, skip ? 1 : 0, intra, imode,
+                    mv0y, mv0x, mv1y, mv1x, ref0c, ref1c,
                     c3[0], c3[1], c3[2], part_ch,
                     pu[0], pu[1], pu[2], pu[3], pu[4], pu[5], pu[6], pu[7]};
     for (int f = 0; f < 24; ++f) r[f] = vals[f];
@@ -388,16 +507,18 @@ __global__ void __launch_bounds__(kThreads) cu_rd_kernel(CuRdArgs a) {
 }  // namespace hm
 
 extern "C" int hm_frac_refine(const short* sub, int Hp, int Wp, const int* cur,
-                              int w, const int* target, int bh, int bw,
-                              int Ny, int Nx, int Rb, const int* mv_int,
-                              const int* pred4, const int* uref, float lam,
-                              int* mv4, float* satd, void* stream) {
-  if (Ny <= 0 || Nx <= 0 || Rb <= 0 || bh % 8 || bw % 8)
+                              int w, int bh, int bw, int Ny, int Nx, int Rb,
+                              const int* mv, int qstart, const int* pred4,
+                              const int* uref, const int* o_uref,
+                              const int* o_mv4, float lam, int* mv4,
+                              float* satd, void* stream) {
+  if (Ny <= 0 || Nx <= 0 || Rb <= 0 || bh % 8 || bw % 8 ||
+      (o_uref && (!uref || !o_mv4)))
     return (int)cudaErrorInvalidValue;
   dim3 grid(Ny * Nx, Rb);
   hm::frac_refine_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      sub, Hp, Wp, cur, w, target, bh, bw, Nx, mv_int, pred4, uref, lam, mv4,
-      satd);
+      sub, Hp, Wp, cur, w, bh, bw, Nx, mv, qstart, pred4, uref, o_uref, o_mv4,
+      lam, mv4, satd);
   return (int)cudaGetLastError();
 }
 
@@ -413,15 +534,26 @@ extern "C" int hm_uni_select(const int* mvq, const float* satd,
   return (int)cudaGetLastError();
 }
 
-extern "C" int hm_cu_rd(const hm::CuRdArgs* a, int s, int N, void* stream) {
-  if (N <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+template <bool B>
+static int launch_cu_rd(const hm::CuRdArgs* a, int s, int N, cudaStream_t st) {
   switch (s) {
-    case 8: hm::cu_rd_kernel<8><<<N, hm::kThreads, 0, st>>>(*a); break;
-    case 16: hm::cu_rd_kernel<16><<<N, hm::kThreads, 0, st>>>(*a); break;
-    case 32: hm::cu_rd_kernel<32><<<N, hm::kThreads, 0, st>>>(*a); break;
-    case 64: hm::cu_rd_kernel<64><<<N, hm::kThreads, 0, st>>>(*a); break;
+    case 8: hm::cu_rd_kernel<8, B><<<N, hm::kThreads, 0, st>>>(*a); break;
+    case 16: hm::cu_rd_kernel<16, B><<<N, hm::kThreads, 0, st>>>(*a); break;
+    case 32: hm::cu_rd_kernel<32, B><<<N, hm::kThreads, 0, st>>>(*a); break;
+    case 64: hm::cu_rd_kernel<64, B><<<N, hm::kThreads, 0, st>>>(*a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
+
+// is_b selects the B mode (list 1, bi, six merge candidates)
+extern "C" int hm_cu_rd(const hm::CuRdArgs* a, int s, int N, int is_b,
+                        void* stream) {
+  if (N <= 0 || a->nx <= 0 || N % a->nx) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return is_b ? launch_cu_rd<true>(a, s, N, st) : launch_cu_rd<false>(a, s, N, st);
+}
+
+// the argument structs' sizes, checked against their ctypes mirrors
+extern "C" size_t hm_sizeof_cu_rd_args() { return sizeof(hm::CuRdArgs); }
+extern "C" size_t hm_sizeof_uni_res() { return sizeof(hm::UniRes); }

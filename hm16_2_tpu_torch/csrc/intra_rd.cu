@@ -250,3 +250,6 @@ extern "C" int hm_intra_cand_rd(const int* bufs, const int* blocks,
 extern "C" const char* hm_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// the argument struct's size, checked against its ctypes mirror
+extern "C" size_t hm_sizeof_tq_params() { return sizeof(hm::TqParams); }

@@ -354,3 +354,7 @@ extern "C" int hm_emit_inter_plan(const hm::InterGrids* g, short* out,
                           (cudaStream_t)stream>>>(*g, out);
   return (int)cudaGetLastError();
 }
+
+// the argument structs' sizes, checked against their ctypes mirrors
+extern "C" size_t hm_sizeof_plan_grids() { return sizeof(hm::PlanGrids); }
+extern "C" size_t hm_sizeof_inter_grids() { return sizeof(hm::InterGrids); }

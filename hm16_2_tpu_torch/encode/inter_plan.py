@@ -1,18 +1,22 @@
-"""Frame-level fused inter plan in PyTorch: the P-picture path.
+"""Frame-level fused inter plan in PyTorch: the P- and B-picture paths.
 
 Counterpart of `hm16_2_tpu/encode/inter_plan.py`, which describes the
-algorithm; only its P branch (`is_b=False`, rect partitions on, integer ME
-inside the plan) is ported.  Each stage is a wrapper that runs a
-hand-written CUDA kernel (`hm16_2_tpu_torch.kernels`) on a CUDA tensor and
-the plain PyTorch version beside it on a CPU tensor:
+algorithm; both its branches (`is_b` False and True, rect partitions on,
+integer ME inside the plan) are ported.  Each stage is a wrapper that runs
+a hand-written CUDA kernel (`hm16_2_tpu_torch.kernels`) on a CUDA tensor
+and the plain PyTorch version beside it on a CPU tensor:
 
     int_me          K5  4x-downsampled SSD grids, coarse argmin with MVD
                         pricing, +-3 full-pel SSE refinement, per CU shape
     subpel_planes   K6  16-phase quarter-pel planes per reference
     frac_refine     K7  49 quarter-pel SATDs around the integer MV, argmin
-    uni_select      K7  the list's best reference per block
-    cu_rd           K8  merge set, kind, residual trial, skip, 2NxN / Nx2N,
-                        intra comparison: one cost and one record per CU
+    uni_select      K7  a list's best reference per block
+    frac_refine_any K7  one pass of the B plan's bi refinement (a reference
+                        per block, the bi target 2*orig - other prediction)
+    cu_rd           K8  P: merge set, kind, residual trial, skip, 2NxN /
+                        Nx2N, intra comparison: one cost and record per CU
+    cu_rd_b         K8  the same for B: six bi merge candidates, uni-L0,
+                        uni-L1, bi and refined bi, rect PUs from either list
     intra_rd.size_rd K2 the intra alternative (inter rounding offset)
     emit            K4  quadtree DP and the packed (24, h/4, w/4) plan
 
@@ -22,16 +26,18 @@ padded entries are never selected (their list entries are masked), so
 leaving them out changes nothing in the plan.
 
 Float32 parity.  The plan is integer maths ranked by float32 costs.  The
-reference's P program (`_plan_device` with is_b=False) runs under
-XLA:CPU, whose LLVM backend fuses a multiply into the add that consumes it
-when both sit in one fused loop and the product has no other use.  Read
-from that program's optimised HLO and LLVM IR, these steps are fused
-multiply-adds (`intra_rd._fma32` here, `__fmaf_rn` in the kernels):
+reference's P and B programs (`_plan_device` with is_b False / True, two
+HLO modules) run under XLA:CPU, whose LLVM backend fuses a multiply into
+the add that consumes it when both sit in one basic block and the product
+has no other use.  Read from each program's optimised HLO and object code,
+these steps are fused multiply-adds (`intra_rd._fma32` here, `__fmaf_rn`
+in the kernels):
 
     coarse ME   g + lamf*mvb                     (reference :150)
     refine      sse + lamf*bits                  (:192)
-    q-pel       satd + lams*bits                 (:394)
+    q-pel       satd + lams*bits                 (:394, B pass :429)
     list pick   satd + lams*bits                 (:523, :843)
+    bi (B)      satd + lams*bits, refined too    (:668, :692)
     trial       sse + lamf*(bits + ...)          (:789, :793, :898, :899)
     intra RD    dist + lamf*bits                 (:967, inside K2)
 
@@ -51,6 +57,7 @@ import numpy as np
 import torch
 
 from hm16_2_tpu.common.tables import LUMA_FILTER
+from hm16_2_tpu.headers.params import B_SLICE
 from hm16_2_tpu_torch import kernels
 from hm16_2_tpu_torch.encode import intra_rd
 from hm16_2_tpu_torch.encode.intra_rd import _bit_length, _f32, _fma32, \
@@ -406,6 +413,48 @@ def frac_refine(sub, cur, mv_int, pred4, lams: float, bh: int, bw: int):
     return _frac_refine_plain(sub, cur, mv_int, pred4, lams, bh, bw)
 
 
+def _frac_refine_any_plain(sub, cur, mv4, uref, anchor4, o_uref, o_mv4, lams,
+                           s):
+    h, w = cur.shape
+    ny, nx = h // s, w // s
+    N = ny * nx
+    dev = cur.device
+    R = sub.shape[0]
+    suball = sub.reshape((R * 16,) + tuple(sub.shape[2:]))
+    ys, xs = _grid_origins(s, s, ny, nx, dev)
+    target = 2 * _grid_blocks(cur, s, s, ny, nx) - \
+        _gather_pred(suball, ys, xs, o_mv4, o_uref, s, s)
+    mv_int = mv4 >> 2                          # floor toward -inf
+    lam = _f32(lams, target)
+    sat, bits = [], []
+    for qy, qx in _QOFFS:
+        m4 = torch.stack([4 * mv_int[:, 0] + qy, 4 * mv_int[:, 1] + qx], -1)
+        pred = _gather_pred(suball, ys, xs, m4, uref, s, s)
+        sat.append(analysis.batched_satd(target - pred).to(torch.float32))
+        bits.append(_mvd_bits(m4[:, 1] - anchor4[:, 1],
+                              m4[:, 0] - anchor4[:, 0]))
+    satd = torch.stack(sat, 1)
+    bits = torch.stack(bits, 1)
+    k = torch.argmin(_fma32(lam.expand_as(bits), bits, satd), dim=1)
+    q = torch.as_tensor(_QOFFS, dtype=torch.int32, device=dev)
+    return 4 * mv_int + q[k], satd[torch.arange(N, device=dev), k]
+
+
+def frac_refine_any(sub, cur, mv4, uref, anchor4, o_uref, o_mv4, lams: float,
+                    s: int):
+    """One pass of the bi refinement (K7, per-block reference mode): the
+    quarter-pel SATD refinement of each s-block's MV mv4 (N, 2) on its own
+    reference uref[n], over the +-3 quarter window around mv4 >> 2, against
+    the bi target 2 * orig - pred(o_uref[n], o_mv4[n]) (the other list's
+    prediction), MVD bins priced from anchor4 (N, 2).  Returns (mv4 (N, 2)
+    int32, satd (N,) float32)."""
+    if _on_cuda(sub):
+        return kernels.frac_refine_any(sub, cur, mv4, uref, anchor4, o_uref,
+                                       o_mv4, lams, s)
+    return _frac_refine_any_plain(sub, cur, mv4, uref, anchor4, o_uref,
+                                  o_mv4, lams, s)
+
+
 def _uni_select_plain(mvq, satd, pred4, lmap, nref, lams):
     mr = lmap.shape[0]
     dev = satd.device
@@ -476,76 +525,79 @@ def _roll2(a, ny, nx, dy, dx):
     return g.reshape(a.shape)
 
 
-def _cu_rd_plain(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf, lams, qp,
-                 bd, nmerge):
-    h, w = cur.shape
-    ny, nx = h // s, w // s
-    N = ny * nx
-    dev = cur.device
-    R = sub.shape[0]
-    suball = sub.reshape((R * 16,) + tuple(sub.shape[2:]))
-    ys, xs = _grid_origins(s, s, ny, nx, dev)
-    blocks = _grid_blocks(cur, s, s, ny, nx)
-    lf, ls = _f32(lamf, blocks), _f32(lams, blocks)
-    i32 = torch.int32
-
-    def pred_of(mv, uref):
-        return _gather_pred(suball, ys, xs, mv, uref, s, s)
-
-    # merge set: left, above, the prior on list 0's first entry, zero
+def _edge_mask(ny, nx, dy, dx, dev):
+    """CUs whose rolled (dy, dx) neighbour wrapped around the grid."""
     ii = torch.arange(ny, device=dev).repeat_interleave(nx)
     jj = torch.arange(nx, device=dev).repeat(ny)
-    zero = torch.zeros((N, 2), dtype=i32, device=dev)
-    ref0v = torch.full((N,), ref0, dtype=i32, device=dev)
-    cands = []
-    for dy, dx in ((0, 1), (1, 0)):
-        cands.append((_roll2(uni["mv"], ny, nx, dy, dx),
-                      _roll2(uni["uref"], ny, nx, dy, dx),
-                      _roll2(uni["ridx"], ny, nx, dy, dx),
-                      (ii == 0) if dy else (jj == 0)))
-    none = torch.zeros((N,), dtype=torch.bool, device=dev)
-    zi = torch.zeros((N,), dtype=i32, device=dev)
-    cands.append((tmvp4, ref0v, zi, none))
-    cands.append((zero, ref0v, zi, none))
+    m = torch.zeros((ny * nx,), dtype=torch.bool, device=dev)
+    if dy > 0:
+        m |= ii == 0
+    if dy < 0:
+        m |= ii == ny - 1
+    if dx > 0:
+        m |= jj == 0
+    if dx < 0:
+        m |= jj == nx - 1
+    return m
+
+
+def _merge_best(blocks, cands, ls, nmerge):
+    """The merge candidate of least SATD + lams * bins (a separately rounded
+    product; strict <, so ties keep the first).  cands: (prediction,
+    invalid) per candidate.  Returns (cost, pred, sel, bits)."""
     m_cost = m_pred = m_sel = m_bits = None
-    for m, (mv, uref, _, invalid) in enumerate(cands):
-        pred = pred_of(mv, uref)
+    for m, (pred, invalid) in enumerate(cands):
         satd = analysis.batched_satd(blocks - pred).to(torch.float32)
         bits = float(min(m + 1, nmerge - 1) + 1) + MERGE_FLAG_BITS
         cost = (satd + ls * bits) + torch.where(invalid, torch.inf, 0.0)
         if m == 0:
             m_cost, m_pred = cost, pred
-            m_sel = torch.zeros((N,), dtype=i32, device=dev)
-            m_bits = torch.full((N,), bits, dtype=torch.float32, device=dev)
+            m_sel = torch.zeros(cost.shape, dtype=torch.int32,
+                                device=cost.device)
+            m_bits = torch.full(cost.shape, bits, dtype=torch.float32,
+                                device=cost.device)
         else:
             better = cost < m_cost
             m_cost = torch.where(better, cost, m_cost)
             m_pred = torch.where(better[:, None, None], pred, m_pred)
             m_sel = torch.where(better, m, m_sel)
             m_bits = torch.where(better, bits, m_bits)
-    ar = torch.arange(N, device=dev)
-    m_mv = torch.stack([c[0] for c in cands])[m_sel, ar]
-    m_ridx = torch.stack([c[2] for c in cands])[m_sel, ar]
+    return m_cost, m_pred, m_sel, m_bits
 
-    # kind: merge or uni-L0, ties to merge
-    use_uni = uni["cost"] < m_cost
-    kind = use_uni.to(i32) * KIND_UNI0
-    bits_motion = torch.where(use_uni, uni["bits"], m_bits)
-    pred_best = torch.where(use_uni[:, None, None], pred_of(uni["mv"],
-                                                            uni["uref"]),
-                            m_pred)
-    mv0 = torch.where(use_uni[:, None], uni["mv"], m_mv)
-    ref0c = torch.where(use_uni, uni["ridx"], m_ridx)
 
+def _coded_or_skip(blocks, pred_best, bits_motion, is_merge, lf, s, bd, qp):
+    """The residual trial of the chosen prediction against its zero-residual
+    (skip) alternative: (skip flag, the lesser cost)."""
     sr, br, sz = _trial(blocks, pred_best, s, bd, qp)
     coded_bits = (br + bits_motion) + 2.0
     cost_coded = _fma32(lf.expand_as(coded_bits), coded_bits, sr)
-    bits_zero = (bits_motion + torch.where(use_uni, 1.0, 0.0)) - \
-        torch.where(use_uni, 0.0, MERGE_FLAG_BITS - SKIP_EXTRA_BITS)
+    bits_zero = (bits_motion + torch.where(is_merge, 0.0, 1.0)) - \
+        torch.where(is_merge, MERGE_FLAG_BITS - SKIP_EXTRA_BITS, 0.0)
     cost_zero = _fma32(lf.expand_as(bits_zero), bits_zero, sz)
-    skip = cost_zero <= cost_coded
-    inter_cost = torch.minimum(cost_coded, cost_zero)
+    return cost_zero <= cost_coded, torch.minimum(cost_coded, cost_zero)
 
+
+def _rect_pu(e0, e1):
+    """A rect PU's list: list 1 where strictly cheaper (dir 2), else list
+    0 (dir 1); e1 None for a P slice."""
+    if e1 is None:
+        return dict(e0, dir=torch.ones_like(e0["ridx"]))
+    use1 = e1["cost"] < e0["cost"]
+    out = {k: torch.where(use1[:, None] if e0[k].dim() == 2 else use1, e1[k],
+                          e0[k]) for k in ("mv", "uref", "ridx", "bits")}
+    out["dir"] = torch.where(use1, 2, 1).to(torch.int32)
+    return out
+
+
+def _rect_and_intra(blocks, suball, s, ny, nx, rect, intra, inter_cost, lf,
+                    bd, qp):
+    """The 2NxN / Nx2N shapes (rect: {1: pu, 2: pu} of `_rect_pu`, or None)
+    and the intra alternative (size_rd's (mode, cost, top3), or None)
+    against inter_cost, on the (ny, nx) grid of CUs.  Returns (part, pu
+    (N, 8), intra flag, imode, icands (N, 3), CU cost)."""
+    N = blocks.shape[0]
+    dev = blocks.device
+    i32 = torch.int32
     part_ch = torch.zeros((N,), dtype=i32, device=dev)
     pu = torch.zeros((N, 8), dtype=i32, device=dev)
     if rect is not None:
@@ -565,13 +617,14 @@ def _cu_rd_plain(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf, lams, qp,
             predc = predc.reshape(N, s, s)
 
             def split(a, _part=part):
+                tail = tuple(a.shape[1:])
                 if _part == 1:
-                    g = a.reshape((ny, 2, nx) + tuple(a.shape[1:]))
-                    return (g[:, 0].reshape((N,) + tuple(a.shape[1:])),
-                            g[:, 1].reshape((N,) + tuple(a.shape[1:])))
-                g = a.reshape((ny, nx, 2) + tuple(a.shape[1:]))
-                return (g[:, :, 0].reshape((N,) + tuple(a.shape[1:])),
-                        g[:, :, 1].reshape((N,) + tuple(a.shape[1:])))
+                    g = a.reshape((ny, 2, nx) + tail)
+                    return (g[:, 0].reshape((N,) + tail),
+                            g[:, 1].reshape((N,) + tail))
+                g = a.reshape((ny, nx, 2) + tail)
+                return (g[:, :, 0].reshape((N,) + tail),
+                        g[:, :, 1].reshape((N,) + tail))
 
             b0, b1 = split(e["bits"])
             bits_cu = (b0 + b1) + RECT_PART_BITS
@@ -580,12 +633,12 @@ def _cu_rd_plain(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf, lams, qp,
             zb = bits_cu + 1.0
             cost_r = torch.minimum(_fma32(lf.expand_as(cb), cb, sr2),
                                    _fma32(lf.expand_as(zb), zb, sz2))
+            d_a, d_b = split(e["dir"])
             mv_a, mv_b = split(e["mv"])
             r_a, r_b = split(e["ridx"])
-            one = torch.ones((N,), dtype=i32, device=dev)
             shapes.append((cost_r, torch.stack(
-                [one, mv_a[:, 0], mv_a[:, 1], r_a,
-                 one, mv_b[:, 0], mv_b[:, 1], r_b], 1)))
+                [d_a, mv_a[:, 0], mv_a[:, 1], r_a,
+                 d_b, mv_b[:, 0], mv_b[:, 1], r_b], 1)))
         (ca, pa), (cb_, pb) = shapes
         use_b = cb_ < ca
         rect_cost = torch.minimum(ca, cb_)
@@ -604,22 +657,86 @@ def _cu_rd_plain(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf, lams, qp,
         intra_flag = (icost < inter_cost).to(i32)
         imode, icands = im, ic3
         cu_cost = torch.minimum(inter_cost, icost)
+    return part_ch, pu, intra_flag, imode, icands, cu_cost
 
-    neg = torch.full((N,), -1, dtype=i32, device=dev)
-    rec = torch.stack([
-        kind, m_sel, torch.ones((N,), dtype=i32, device=dev), skip.to(i32),
-        intra_flag, imode, mv0[:, 0], mv0[:, 1], zi, zi, ref0c, neg,
+
+def _record(kind, msrc, dirv, skip, mv0, mv1, ref0, ref1, tail):
+    """The (N, NREC) record of REC_FIELDS."""
+    part_ch, pu, intra_flag, imode, icands, _ = tail
+    return torch.stack([
+        kind, msrc, dirv, skip.to(torch.int32), intra_flag, imode,
+        mv0[:, 0], mv0[:, 1], mv1[:, 0], mv1[:, 1], ref0, ref1,
         icands[:, 0], icands[:, 1], icands[:, 2], part_ch,
-        *pu.unbind(1)], 1).to(i32)
-    return rec, cu_cost
+        *pu.unbind(1)], 1).to(torch.int32)
+
+
+def _cu_setup(cur, sub, s):
+    h, w = cur.shape
+    ny, nx = h // s, w // s
+    dev = cur.device
+    R = sub.shape[0]
+    suball = sub.reshape((R * 16,) + tuple(sub.shape[2:]))
+    ys, xs = _grid_origins(s, s, ny, nx, dev)
+    blocks = _grid_blocks(cur, s, s, ny, nx)
+
+    def pred_of(mv, uref):
+        return _gather_pred(suball, ys, xs, mv, uref, s, s)
+
+    return ny, nx, suball, blocks, pred_of
+
+
+def _cu_rd_plain(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf, lams, qp,
+                 bd, nmerge):
+    ny, nx, suball, blocks, pred_of = _cu_setup(cur, sub, s)
+    N = ny * nx
+    dev = cur.device
+    lf, ls = _f32(lamf, blocks), _f32(lams, blocks)
+    i32 = torch.int32
+
+    # merge set: left, above, the prior on list 0's first entry, zero
+    zero = torch.zeros((N, 2), dtype=i32, device=dev)
+    ref0v = torch.full((N,), ref0, dtype=i32, device=dev)
+    zi = torch.zeros((N,), dtype=i32, device=dev)
+    none = torch.zeros((N,), dtype=torch.bool, device=dev)
+    hyps = [(_roll2(uni["mv"], ny, nx, dy, dx),
+             _roll2(uni["uref"], ny, nx, dy, dx),
+             _roll2(uni["ridx"], ny, nx, dy, dx),
+             _edge_mask(ny, nx, dy, dx, dev)) for dy, dx in ((0, 1), (1, 0))]
+    hyps += [(tmvp4, ref0v, zi, none), (zero, ref0v, zi, none)]
+    m_cost, m_pred, m_sel, m_bits = _merge_best(
+        blocks, ((pred_of(mv, ur), inv) for mv, ur, _, inv in hyps), ls,
+        nmerge)
+    ar = torch.arange(N, device=dev)
+    m_mv = torch.stack([c[0] for c in hyps])[m_sel, ar]
+    m_ridx = torch.stack([c[2] for c in hyps])[m_sel, ar]
+
+    # kind: merge or uni-L0, ties to merge
+    use_uni = uni["cost"] < m_cost
+    kind = use_uni.to(i32) * KIND_UNI0
+    bits_motion = torch.where(use_uni, uni["bits"], m_bits)
+    pred_best = torch.where(use_uni[:, None, None],
+                            pred_of(uni["mv"], uni["uref"]), m_pred)
+    mv0 = torch.where(use_uni[:, None], uni["mv"], m_mv)
+    ref0c = torch.where(use_uni, uni["ridx"], m_ridx)
+
+    skip, inter_cost = _coded_or_skip(blocks, pred_best, bits_motion,
+                                      ~use_uni, lf, s, bd, qp)
+    rect_pu = None if rect is None else {
+        p: _rect_pu(rect[p], None) for p in (1, 2)}
+    tail = _rect_and_intra(blocks, suball, s, ny, nx, rect_pu, intra,
+                           inter_cost, lf, bd, qp)
+    rec = _record(kind, m_sel, torch.ones((N,), dtype=i32, device=dev), skip,
+                  mv0, zero, ref0c, torch.full((N,), -1, dtype=i32,
+                                               device=dev), tail)
+    return rec, tail[-1]
 
 
 def cu_rd(cur, sub, s: int, uni, tmvp4, ref0: int, rect, intra, lamf: float,
           lams: float, qp: int, bd: int, nmerge: int):
-    """Price every CU of size s (K8): the approximate merge set (left and
-    above neighbours' list winners, the prior, zero), merge against
-    uni-prediction, the residual trial and its skip alternative, the
-    2NxN / Nx2N shapes and the intra alternative.  Returns the per-CU
+    """Price every CU of size s of a P picture (K8): the approximate merge
+    set (left and above neighbours' list winners, the prior, zero), merge
+    against uni-prediction, the residual trial and its skip alternative,
+    the 2NxN / Nx2N shapes and the intra alternative.  Returns the per-CU
     record (N, NREC) int32 (fields REC_FIELDS) and the CU cost (N,) f32.
     uni: uni_select's result for the squares of size s; tmvp4: (N, 2)
     quarter-pel prior on list 0's first entry ref0; rect: {1: ..., 2: ...}
@@ -630,6 +747,130 @@ def cu_rd(cur, sub, s: int, uni, tmvp4, ref0: int, rect, intra, lamf: float,
                              lamf, lams, qp, bd, nmerge)
     return _cu_rd_plain(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf,
                         lams, qp, bd, nmerge)
+
+
+def _rbits(ridx, nref):
+    """Reference-index bins of a list entry: min(ridx + 1, nref - 1) when
+    the list has more than one live entry, else 0 (float32)."""
+    if nref > 1:
+        return torch.clamp(ridx + 1, max=nref - 1).to(torch.float32)
+    return torch.zeros(ridx.shape, dtype=torch.float32, device=ridx.device)
+
+
+def _cu_rd_b_plain(cur, sub, s, uni, tmvp4, first, nref, mvb, rect, intra,
+                   lamf, lams, qp, bd, nmerge):
+    ny, nx, suball, blocks, pred_of = _cu_setup(cur, sub, s)
+    N = ny * nx
+    dev = cur.device
+    lf, ls = _f32(lamf, blocks), _f32(lams, blocks)
+    i32 = torch.int32
+    zero = torch.zeros((N, 2), dtype=i32, device=dev)
+    zi = torch.zeros((N,), dtype=i32, device=dev)
+    none = torch.zeros((N,), dtype=torch.bool, device=dev)
+
+    def bi_pred(a, b):
+        return (a + b + 1) >> 1
+
+    # merge set of six bi candidates: the A1 / B1 / B0 / A0 neighbours'
+    # list winners, the prior on each list's first entry, zero
+    hyps = []
+    for dy, dx in ((0, 1), (1, 0), (1, -1), (-1, 1)):
+        hyps.append(([(_roll2(u["mv"], ny, nx, dy, dx),
+                       _roll2(u["uref"], ny, nx, dy, dx),
+                       _roll2(u["ridx"], ny, nx, dy, dx)) for u in uni],
+                     _edge_mask(ny, nx, dy, dx, dev)))
+    for prior in (True, False):
+        hyps.append(([(tmvp4[lx] if prior else zero,
+                       torch.full((N,), first[lx], dtype=i32, device=dev), zi)
+                      for lx in (0, 1)], none))
+    m_cost, m_pred, m_sel, m_bits = _merge_best(
+        blocks, ((bi_pred(pred_of(*e[0][:2]), pred_of(*e[1][:2])), inv)
+                 for e, inv in hyps), ls, nmerge)
+    ar = torch.arange(N, device=dev)
+    m_mv = [torch.stack([e[lx][0] for e, _ in hyps])[m_sel, ar]
+            for lx in (0, 1)]
+    m_ridx = [torch.stack([e[lx][2] for e, _ in hyps])[m_sel, ar]
+              for lx in (0, 1)]
+
+    # bi: the list winners' average, then the refined pair where cheaper
+    pu0 = pred_of(uni[0]["mv"], uni[0]["uref"])
+    pu1 = pred_of(uni[1]["mv"], uni[1]["uref"])
+    pred_bi = bi_pred(pu0, pu1)
+    satd = analysis.batched_satd(blocks - pred_bi).to(torch.float32)
+    bits = (uni[0]["bits"] + uni[1]["bits"]) + \
+        (BI_BASE_BITS - 2 * UNI_BASE_BITS)
+    cost = _fma32(ls.expand_as(bits), bits, satd)
+    pred_it = bi_pred(pred_of(mvb[0], uni[0]["uref"]),
+                      pred_of(mvb[1], uni[1]["uref"]))
+    satd_it = analysis.batched_satd(blocks - pred_it).to(torch.float32)
+    a0, a1 = uni[0]["anchor"], uni[1]["anchor"]
+    mb_it = _mvd_bits(mvb[0][:, 1] - a0[:, 1], mvb[0][:, 0] - a0[:, 0]) + \
+        _mvd_bits(mvb[1][:, 1] - a1[:, 1], mvb[1][:, 0] - a1[:, 0])
+    bits_it = ((mb_it + _rbits(uni[0]["ridx"], nref[0])) +
+               _rbits(uni[1]["ridx"], nref[1])) + BI_BASE_BITS
+    cost_it = _fma32(ls.expand_as(bits_it), bits_it, satd_it)
+    it = cost_it < cost
+    bi_cost = torch.where(it, cost_it, cost)
+    bi_bits = torch.where(it, bits_it, bits)
+    bi_pred_b = torch.where(it[:, None, None], pred_it, pred_bi)
+    bi_mv = [torch.where(it[:, None], mvb[lx], uni[lx]["mv"])
+             for lx in (0, 1)]
+
+    # kind: the first least of merge, uni-L0, uni-L1, bi
+    kind = torch.argmin(torch.stack([m_cost, uni[0]["cost"], uni[1]["cost"],
+                                     bi_cost]), dim=0).to(i32)
+    bits_motion = torch.stack([m_bits, uni[0]["bits"], uni[1]["bits"],
+                               bi_bits])[kind, ar]
+    pred_best = torch.stack([m_pred, pu0, pu1, bi_pred_b])[kind, ar]
+
+    def pick(merge_v, uni0_v, uni1_v, bi_v):
+        k = kind[:, None] if bi_v.dim() == 2 else kind
+        out = torch.where(k == KIND_MERGE, merge_v, bi_v)
+        out = torch.where(k == KIND_UNI0, uni0_v, out)
+        return torch.where(k == KIND_UNI1, uni1_v, out)
+
+    neg = torch.full((N,), -1, dtype=i32, device=dev)
+    u0r, u1r = uni[0]["ridx"], uni[1]["ridx"]
+    mv0 = pick(m_mv[0], uni[0]["mv"], zero, bi_mv[0])
+    mv1 = pick(m_mv[1], zero, uni[1]["mv"], bi_mv[1])
+    ref0 = pick(m_ridx[0], u0r, neg, u0r)
+    ref1 = pick(m_ridx[1], neg, u1r, u1r)
+    dirv = pick(torch.full((N,), 3, dtype=i32, device=dev),
+                torch.full((N,), 1, dtype=i32, device=dev),
+                torch.full((N,), 2, dtype=i32, device=dev),
+                torch.full((N,), 3, dtype=i32, device=dev))
+
+    skip, inter_cost = _coded_or_skip(blocks, pred_best, bits_motion,
+                                      kind == KIND_MERGE, lf, s, bd, qp)
+    rect_pu = None if rect is None else {
+        p: _rect_pu(*rect[p]) for p in (1, 2)}
+    tail = _rect_and_intra(blocks, suball, s, ny, nx, rect_pu, intra,
+                           inter_cost, lf, bd, qp)
+    return _record(kind, m_sel, dirv, skip, mv0, mv1, ref0, ref1, tail), \
+        tail[-1]
+
+
+def cu_rd_b(cur, sub, s: int, uni, tmvp4, first, nref, mvb, rect, intra,
+            lamf: float, lams: float, qp: int, bd: int, nmerge: int):
+    """Price every CU of size s of a B picture (K8, B mode): the merge set
+    of six bi candidates (the A1 / B1 / B0 / A0 neighbours' list winners,
+    the prior on each list's first entry, zero), uni-prediction from each
+    list, bi-prediction from the two list winners or from the refined pair
+    mvb where that is cheaper, the first least of the four kinds, the
+    residual trial and its skip alternative, the 2NxN / Nx2N shapes (each
+    PU from the cheaper list) and the intra alternative.  Returns the
+    record (N, NREC) int32 and the CU cost (N,) f32.
+    uni, tmvp4, first, nref, mvb: per list (pair): uni_select's result for
+    the squares of size s, the (N, 2) quarter-pel prior on the list's first
+    entry, that entry's reference index, the live entry count, and the
+    (N, 2) bi-refined MV (frac_refine_any); rect: {1: (l0, l1), 2: (l0,
+    l1)} uni_select results per shape and list, or None; intra: size_rd's
+    (mode, cost, top3) or None."""
+    if _on_cuda(cur):
+        return kernels.cu_rd_b(cur, sub, s, uni, tmvp4, first, nref, mvb,
+                               rect, intra, lamf, lams, qp, bd, nmerge)
+    return _cu_rd_b_plain(cur, sub, s, uni, tmvp4, first, nref, mvb, rect,
+                          intra, lamf, lams, qp, bd, nmerge)
 
 
 # ---------------------------------------------------------------------------
@@ -719,22 +960,26 @@ def emit(recs, costs, lamf: float, h: int, w: int):
 
 
 # ---------------------------------------------------------------------------
-# the P-picture frame plan
+# the P- and B-picture frame plan
 # ---------------------------------------------------------------------------
 
-def _plan_device(cur, refs, mvn16, dists, lam, lam_sqrt, qp, map0, nref0, *,
-                 h: int, w: int, bd: int, nmerge: int, parts: bool = True):
-    """The whole P-picture plan on the planes' device.  cur: (h, w) int32;
-    refs: (R, h, w) int32, the live unique references; mvn16: (h/8, w/8, 2)
-    int32 POC-normalised prior; dists: (R,) int32 POC distance cur - ref;
-    map0: (MAXREF_PLAN,) int32 list-0 indices into refs, nref0 live.
-    Returns the packed (24, h/4, w/4) int16 plan."""
+def _plan_device(cur, refs, mvn16, dists, lam, lam_sqrt, qp, map0, nref0,
+                 map1=None, nref1=0, *, h: int, w: int, bd: int, nmerge: int,
+                 is_b: bool = False, parts: bool = True):
+    """The whole P- or B-picture plan on the planes' device.  cur: (h, w)
+    int32; refs: (R, h, w) int32, the live unique references; mvn16:
+    (h/8, w/8, 2) int32 POC-normalised prior; dists: (R,) int32 signed POC
+    distance cur - ref (negative for a future reference, so the prior
+    flips); map0 / map1: (MAXREF_PLAN,) int32 list indices into refs,
+    nref0 / nref1 live (list 1 only when is_b).  Returns the packed
+    (24, h/4, w/4) int16 plan."""
     lamf = float(np.float32(lam))
     lams = float(np.float32(lam_sqrt))
     mvp8 = _mvp_full(mvn16, dists)
     mv_int = int_me(cur, refs, mvp8, lams, h, w, parts)
     sub = subpel_planes(refs, bd, h, w)
-    ref0 = int(map0[0])
+    lists = [(map0, nref0), (map1, nref1)] if is_b else [(map0, nref0)]
+    first = [int(m[0]) for m, _ in lists]
     recs, costs = {}, {}
     for s in SIZES:
         ny, nx = h // s, w // s
@@ -744,7 +989,7 @@ def _plan_device(cur, refs, mvn16, dists, lam, lam_sqrt, qp, map0, nref0, *,
         pred4 = 4 * _me_mvp(mvp8, s, 0)[:, :ny, :nx]
         mvq, satd = frac_refine(sub, cur, mv_int[(s, 0)], pred4, lams, s, s)
         pred4 = pred4.reshape(pred4.shape[0], -1, 2).contiguous()
-        uni = uni_select(mvq, satd, pred4, map0, nref0, lams)
+        uni = [uni_select(mvq, satd, pred4, m, n, lams) for m, n in lists]
         rect = None
         if (s, 1) in mv_int:
             rect = {}
@@ -755,16 +1000,31 @@ def _plan_device(cur, refs, mvn16, dists, lam, lam_sqrt, qp, map0, nref0, *,
                 pp4 = 4 * _me_mvp(mvp8, s, part)[:, :Ny, :Nx]
                 mq, sa = frac_refine(sub, cur, mvr, pp4, lams, bh, bw)
                 pp4 = pp4.reshape(pp4.shape[0], -1, 2).contiguous()
-                rect[part] = uni_select(mq, sa, pp4, map0, nref0, lams)
+                rect[part] = [uni_select(mq, sa, pp4, m, n, lams)
+                              for m, n in lists]
         intra = None
         if s <= 32:
             bufs, blocks = intra_rd.ref_buffers(cur, s, bd, True, h, w)
             m, c, c3, _ = intra_rd.size_rd(bufs, blocks, lamf, s, bd, 3, qp,
                                            True, False, False, inter=True)
             intra = (m, c, c3)
-        recs[s], costs[s] = cu_rd(cur, sub, s, uni, pred4[ref0].contiguous(),
-                                  ref0, rect, intra, lamf, lams, qp, bd,
-                                  nmerge)
+        tmvp4 = [pred4[f].contiguous() for f in first]
+        if not is_b:
+            recs[s], costs[s] = cu_rd(
+                cur, sub, s, uni[0], tmvp4[0], first[0],
+                None if rect is None else {p: e[0] for p, e in rect.items()},
+                intra, lamf, lams, qp, bd, nmerge)
+            continue
+        # the two-pass bi refinement: list 1 against 2 * orig - pred0,
+        # then list 0 against 2 * orig - pred1'
+        u0, u1 = uni
+        mv1b, _ = frac_refine_any(sub, cur, u1["mv"], u1["uref"],
+                                  u1["anchor"], u0["uref"], u0["mv"], lams, s)
+        mv0b, _ = frac_refine_any(sub, cur, u0["mv"], u0["uref"],
+                                  u0["anchor"], u1["uref"], mv1b, lams, s)
+        recs[s], costs[s] = cu_rd_b(
+            cur, sub, s, uni, tmvp4, first, [n for _, n in lists],
+            [mv0b, mv1b], rect, intra, lamf, lams, qp, bd, nmerge)
     return emit(recs, costs, lamf, h, w)
 
 
@@ -773,7 +1033,7 @@ def _plan_device(cur, refs, mvn16, dists, lam, lam_sqrt, qp, map0, nref0, *,
 # ---------------------------------------------------------------------------
 
 class InterPlan:
-    """Dense frame plan for a P frame.  Field names shared with
+    """Dense frame plan for a P or B frame.  Field names shared with
     intra_rd.IntraPlan so the intra commit path works unchanged on the
     plan's intra CUs."""
 
@@ -858,29 +1118,32 @@ def _to_device(a, device):
 
 
 def _plan_inputs(sps, sh, rc):
-    """The live unique reference planes of list 0, the list map padded to
-    MAXREF_PLAN, the live count, the POC distances, and whether the planes
-    were weighted (then not cacheable)."""
+    """The live unique reference planes (list 0's entries, then list 1's on
+    a B slice, deduplicated by identity in that order), the two list maps
+    padded to MAXREF_PLAN and their live counts (list 1 empty on a P
+    slice), the signed POC distances, and whether the planes were weighted
+    (then not cacheable)."""
     bd = sps.bit_depth_luma
+    nlists = 2 if sh.slice_type == B_SLICE else 1
     uniq, keymap = [], {}
-    nref = min(sh.num_ref_idx[0], len(rc.ref_lists[0]))
-    for r_idx in range(nref):
-        ref = rc.ref_lists[0][r_idx]
-        for j, (k2, _, _) in enumerate(uniq):
-            if k2 == id(ref):
-                keymap[r_idx] = j
-                break
-        else:
-            keymap[r_idx] = len(uniq)
-            uniq.append((id(ref), ref.rec[0], ref.poc))
+    for lx in range(nlists):
+        for r_idx in range(min(sh.num_ref_idx[lx], len(rc.ref_lists[lx]))):
+            ref = rc.ref_lists[lx][r_idx]
+            for j, (k2, _, _) in enumerate(uniq):
+                if k2 == id(ref):
+                    keymap[(lx, r_idx)] = j
+                    break
+            else:
+                keymap[(lx, r_idx)] = len(uniq)
+                uniq.append((id(ref), ref.rec[0], ref.poc))
     planes = [p for _, p, _ in uniq]
     weighted = False
     if getattr(sh, "pred_weights", None):
         # WP-aware pricing: fold each reference's explicit luma weight and
         # offset into its plane (the reference's plan_frame, :1227-1248)
         wmap = {}
-        for r2, j in keymap.items():
-            wp = sh.pred_weights.get((0, r2, 0))
+        for key, j in keymap.items():
+            wp = sh.pred_weights.get(key + (0,))
             if wp is not None and wp.present and j not in wmap:
                 wmap[j] = wp
         if any(wp.weight != (1 << wp.log2_denom) or wp.offset
@@ -897,34 +1160,38 @@ def _plan_inputs(sps, sh, rc):
                 q = ((p.astype(np.int64) * wp.weight + rnd)
                      >> wp.log2_denom) + wp.offset * off_scale
                 planes[j] = np.clip(q, 0, maxv).astype(np.int32)
-    map0 = ([keymap[i] for i in range(nref)] + [0] * MAXREF_PLAN)[:MAXREF_PLAN]
+    maps, nrefs = [], []
+    for lx in range(2):
+        m = [j for (l2, _), j in keymap.items() if l2 == lx]
+        maps.append((m + [0] * MAXREF_PLAN)[:MAXREF_PLAN])
+        nrefs.append(min(len(m), MAXREF_PLAN))
     dists = [sh.poc - poc for _, _, poc in uniq]
-    return planes, map0, min(nref, MAXREF_PLAN), dists, weighted
+    return planes, maps, nrefs, dists, weighted
 
 
 def submit_plan(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt,
                 device: torch.device):
-    """Enqueue the P-picture plan on `device` without waiting for it: the
-    kernels and the copy of the packed plan into pinned host memory are
-    queued on the current stream.  Returns None when list 0 is empty."""
+    """Enqueue the P- or B-picture plan on `device` without waiting for it:
+    the kernels and the copy of the packed plan into pinned host memory are
+    queued on the current stream.  Returns None when the slice has no
+    reference."""
     h, w = sps.pic_height, sps.pic_width
-    if sh.slice_type == 0:
-        raise NotImplementedError("the PyTorch port plans P slices only (the "
-                                  "B-slice plan is not ported)")
-    if not rc.ref_lists[0] or sh.num_ref_idx[0] <= 0:
+    planes, maps, nrefs, dists, weighted = _plan_inputs(sps, sh, rc)
+    if not planes:
         return None
-    planes, map0, nref0, dists, weighted = _plan_inputs(sps, sh, rc)
     parts = not os.environ.get("HM16_NO_PLAN_PARTS")
     mvn16 = (np.zeros((h // 8, w // 8, 2), np.int32) if prev_mv8 is None
              else np.asarray(prev_mv8, np.int32))
     refs = torch.stack([_to_device(p[:h, :w], device) if weighted
                         else _device_ref(p, h, w, device) for p in planes])
+    lmaps = [torch.as_tensor(m, dtype=torch.int32, device=device)
+             for m in maps]
     packed = _plan_device(
         _to_device(orig_y[:h, :w], device), refs, _to_device(mvn16, device),
         torch.as_tensor(dists, dtype=torch.int32, device=device), lam,
-        lam_sqrt, sh.qp + 6 * (sps.bit_depth_luma - 8),
-        torch.as_tensor(map0, dtype=torch.int32, device=device), nref0,
-        h=h, w=w, bd=sps.bit_depth_luma, nmerge=sh.max_num_merge_cand,
+        lam_sqrt, sh.qp + 6 * (sps.bit_depth_luma - 8), lmaps[0], nrefs[0],
+        lmaps[1], nrefs[1], h=h, w=w, bd=sps.bit_depth_luma,
+        nmerge=sh.max_num_merge_cand, is_b=sh.slice_type == B_SLICE,
         parts=parts)
     if packed.device.type != "cuda":
         return PlanFuture(packed, None)
@@ -937,8 +1204,8 @@ def submit_plan(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt,
 
 def plan_frame(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt,
                device: torch.device, fetch: bool = True):
-    """Plan one P frame.  rc: mvpred.RefCtx with the frame's reference
-    lists.  fetch=True waits and returns the InterPlan; fetch=False returns
+    """Plan one P or B picture.  rc: mvpred.RefCtx with the frame's
+    reference lists.  fetch=True waits and returns the InterPlan; fetch=False returns
     a function that does.  None when the slice has no reference."""
     fut = submit_plan(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt, device)
     if fut is None:

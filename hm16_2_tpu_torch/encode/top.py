@@ -7,12 +7,15 @@ engine, deblocking, SAO, CABAC, headers, hash SEI) has no JAX in it.  They
 override only what reaches a JAX module: the plan submission, the per-frame
 `_encode_one` (which builds `CtuSearch` by name and plans at its top; a copy
 with those call sites pointed here), the pipelined dispatch of the next
-P picture's plan, and the fallback search's 35-mode SATD analysis.
+picture's P or B plan, and the fallback search's 35-mode SATD analysis.
 
-Ported: all-intra, and the P-only structures (low-delay P with HM's GOP-4
-table, flat-QP IPPP through `encode_frame`, a `gop_table` of P entries).
-B slices, the inter ME fallback and the host-only search switches raise
-NotImplementedError; nothing falls back to another path.
+Ported: all-intra; low-delay P with HM's GOP-4 table and its low-delay B
+flush tail; flat-QP IPPP through `encode_frame`; random access (`gop="ra8"`,
+HM's hierarchical-B GOP 8, with the pipelined plans of pictures 3, 6 and 7
+of each GOP); `gop_table`s of P and B entries.  Rate control, field coding,
+delta_qp_rd, the inter ME fallback (a P or B slice without a plan) and the
+host-only search switches raise NotImplementedError; nothing falls back to
+another path.
 """
 
 from __future__ import annotations
@@ -35,22 +38,15 @@ from hm16_2_tpu.encode.ctu_enc import CtuEncoder
 from hm16_2_tpu.encode.top import EncoderConfig
 from hm16_2_tpu.headers import write as W
 from hm16_2_tpu.headers.params import (
-    B_SLICE, I_SLICE, NAL_IDR_N_LP, NAL_IDR_W_RADL, NAL_TRAIL_R, P_SLICE,
-    is_irap)
+    I_SLICE, NAL_IDR_N_LP, NAL_IDR_W_RADL, NAL_TRAIL_R, P_SLICE, is_irap)
 from hm16_2_tpu.ops import intra_ref
 from hm16_2_tpu_torch.encode import inter_plan, intra_rd
 from hm16_2_tpu_torch.ops import analysis
 
 
 def _unported(cfg) -> list[str]:
-    """The options of `cfg` that leave the ported paths (all-intra and
-    P-only structures)."""
+    """The options of `cfg` that leave the ported paths."""
     out = []
-    if cfg.gop_table:
-        if any(e.get("type", "B") != "P" for e in cfg.gop_table):
-            out.append("a gop_table with B entries")
-    elif cfg.gop != "ld":
-        out.append(f"gop={cfg.gop!r} (B pictures)")
     if cfg.target_bps:
         out.append("rate control")
     if getattr(cfg, "field_coding", False):
@@ -61,7 +57,7 @@ def _unported(cfg) -> list[str]:
 
 
 class Encoder(_ref.Encoder):
-    """HEVC encoder (all-intra or P-only) whose frame plans run on
+    """HEVC encoder whose frame plans (I, P and B pictures) run on
     `device`."""
 
     def __init__(self, cfg: EncoderConfig, device: torch.device):
@@ -70,8 +66,7 @@ class Encoder(_ref.Encoder):
         unported = _unported(cfg)
         if unported:
             raise NotImplementedError(
-                "the PyTorch port encodes all-intra and P-only structures; "
-                "not ported: " + ", ".join(unported))
+                "not ported to the PyTorch port: " + ", ".join(unported))
         super().__init__(cfg)
         self.device = device
 
@@ -229,10 +224,6 @@ class Encoder(_ref.Encoder):
                     getattr(search, "chroma_weight", 1.0), cqps, self.device)
             _tick("plan", t0)
         if sh.slice_type != I_SLICE:
-            if sh.slice_type == B_SLICE:
-                raise NotImplementedError(
-                    "the PyTorch port plans I and P slices only (the B-slice "
-                    "plan is not ported)")
             ref_lists = build_ref_lists(sh, self.dpb)
             if pps.weighted_pred and sh.slice_type == P_SLICE:
                 from hm16_2_tpu.encode.wp_analysis import estimate_wp
@@ -260,8 +251,8 @@ class Encoder(_ref.Encoder):
                 _tick("plan", t0)
                 if search.plan is None:
                     raise NotImplementedError(
-                        "a P slice without a plan would take the inter ME "
-                        "fallback (inter_me), which is not ported")
+                        "a P or B slice without a plan would take the inter "
+                        "ME fallback (inter_me), which is not ported")
         # pass 1: mode decisions + reconstruction (TEncSlice::compressSlice).
         # Planned I-slices commit the whole frame in ONE native call (the
         # C++ engine walks every CTU, border CTUs via implicit splits);
@@ -667,9 +658,11 @@ class Encoder(_ref.Encoder):
         return au
 
     def _predispatch_ra(self, planes, poc, slot, nal_type=NAL_TRAIL_R):
-        """Enqueue the next picture's P plan while the current picture
+        """Enqueue the next picture's P or B plan while the current picture
         commits, when every reference of the next picture is already
-        committed (the reference's conditions, top.py:915-950).  Returns
+        committed (the reference's conditions, top.py:915-950; in RA GOP 8
+        coding order, pictures 3, 6 and 7).  The plan prices with the
+        motion prior of the picture before the current one.  Returns
         (sh, plan_fetch) or None; errors propagate."""
         cfg = self.cfg
         if (self.rc is not None or not cfg.rdo or not self.gop_table
@@ -682,8 +675,6 @@ class Encoder(_ref.Encoder):
         sh.poc = poc             # the plan prices by POC distances
         if self.pps.weighted_pred and sh.slice_type == P_SLICE:
             return None          # WP estimation mutates sh per picture
-        if sh.slice_type == B_SLICE:
-            raise NotImplementedError("the B-slice plan is not ported")
         rc = RefCtx(sh, build_ref_lists(sh, self.dpb))
         alpha, mult = self._lambda_args(sh, slot)
         lam = alpha * 2.0 ** ((sh.qp - 12) / 3.0) * mult

@@ -17,11 +17,16 @@ and contiguity, launch, and raise if `cudaGetLastError()` is not 0.
                                           argmin, refinement)
     K6 subpel_planes  csrc/subpel.cu
     K7 inter_uni      csrc/inter_rd.cu   (q-pel refinement, list pick)
-    K8 inter_cu_rd    csrc/inter_rd.cu
+       inter_bi_refine                   (K7's per-block-reference mode:
+                                          the B plan's bi refinement)
+    K8 inter_cu_rd    csrc/inter_rd.cu   (P pictures)
+       inter_cu_rd_b                     (K8's B mode)
 
-`LAUNCHES` counts kernel launches per kernel; the counts grow only where a
-kernel is launched.  Nothing here runs at import: `nvcc` is looked up and
-run on the first launch (or an explicit `build()`).
+`LAUNCHES` counts kernel launches per kernel (and per mode of K7 and K8);
+the counts grow only where a kernel is launched.  Nothing here runs at
+import: `nvcc` is looked up and run on the first launch (or an explicit
+`build()`).  Loading the library checks that every argument struct's ctypes
+mirror has the C struct's size.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"ref_buffers": 0, "intra_size_rd": 0, "intra_cand_rd": 0,
             "plan_dp": 0, "inter_me": 0, "subpel_planes": 0, "inter_uni": 0,
-            "inter_cu_rd": 0}
+            "inter_bi_refine": 0, "inter_cu_rd": 0, "inter_cu_rd_b": 0}
 
 
 def reset_launches():
@@ -104,7 +109,19 @@ class CuRdArgs(ctypes.Structure):
                 ("lamf", ctypes.c_float), ("lams", ctypes.c_float),
                 ("nmerge", ctypes.c_int), ("tq", TqParams),
                 ("tm", ctypes.c_void_p), ("model", ctypes.c_void_p),
-                ("rec", ctypes.c_void_p), ("cost", ctypes.c_void_p)]
+                ("rec", ctypes.c_void_p), ("cost", ctypes.c_void_p),
+                # B mode only
+                ("uni1", UniRes), ("tmvp4_1", ctypes.c_void_p),
+                ("ref1", ctypes.c_int), ("rect1", UniRes * 2),
+                ("anchor0", ctypes.c_void_p), ("anchor1", ctypes.c_void_p),
+                ("mvb0", ctypes.c_void_p), ("mvb1", ctypes.c_void_p),
+                ("nref0", ctypes.c_int), ("nref1", ctypes.c_int)]
+
+# each C argument struct (its sizeof exported by the library) and its mirror
+_STRUCTS = {"hm_sizeof_tq_params": TqParams,
+            "hm_sizeof_plan_grids": PlanGrids,
+            "hm_sizeof_inter_grids": InterGrids,
+            "hm_sizeof_uni_res": UniRes, "hm_sizeof_cu_rd_args": CuRdArgs}
 
 
 _lib = None
@@ -186,10 +203,10 @@ def _load():
         "hm_me_argmin": [P, I, I, I, I, I, I, P, F, P, P],
         "hm_me_refine": [P, I, I, P, I, I, I, I, I, P, P, F, P, P],
         "hm_subpel_planes": [P, I, I, I, I, P, P],
-        "hm_frac_refine": [P, I, I, P, I, P, I, I, I, I, I, P, P, P, F, P, P,
-                           P],
+        "hm_frac_refine": [P, I, I, P, I, I, I, I, I, I, P, I, P, P, P, P, F,
+                           P, P, P],
         "hm_uni_select": [P, P, P, P, I, I, I, F, P, P, P, P, P, P, P, P],
-        "hm_cu_rd": [ctypes.POINTER(CuRdArgs), I, I, P],
+        "hm_cu_rd": [ctypes.POINTER(CuRdArgs), I, I, I, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -197,6 +214,13 @@ def _load():
         fn.restype = ctypes.c_int
     lib.hm_error_string.argtypes = [ctypes.c_int]
     lib.hm_error_string.restype = ctypes.c_char_p
+    for name, mirror in _STRUCTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [], ctypes.c_size_t
+        if fn() != ctypes.sizeof(mirror):
+            raise RuntimeError(f"{mirror.__name__}: the C struct has {fn()} "
+                               f"bytes, its ctypes mirror "
+                               f"{ctypes.sizeof(mirror)}")
     _lib = lib
     return lib
 
@@ -571,35 +595,55 @@ def subpel_planes(refs, bd, h, w):
 # K7
 # ---------------------------------------------------------------------------
 
-def frac_refine(sub, cur, mv_int, pred4, lams, bh, bw, uref=None,
-                target=None):
-    """mv_int / pred4: (Rb, Ny, Nx, 2); with uref (N,) the block's
-    reference is uref[n] for every batch entry, else the entry's index;
-    target (N, bh, bw) replaces the current plane's blocks."""
+def _frac_refine(kernel, sub, cur, mv, qstart, pred4, lams, bh, bw,
+                 uref=None, other=None):
+    """mv / pred4: (Rb, Ny, Nx, 2); with uref (N,) the block's reference is
+    uref[n] for every batch entry, else the entry's index; other: (o_uref
+    (N,), o_mv4 (N, 2)), the hypothesis of the bi target."""
     R, Hp, Wp = sub.shape[0], sub.shape[2], sub.shape[3]
-    Rb, Ny, Nx = mv_int.shape[:3]
+    Rb, Ny, Nx = mv.shape[:3]
     h, w = cur.shape
     _need(sub, torch.int16, (R, 16, Hp, Wp), "sub")
     _need(cur, torch.int32, name="cur")
-    _need(mv_int, torch.int32, (Rb, Ny, Nx, 2), "mv_int")
+    _need(mv, torch.int32, (Rb, Ny, Nx, 2), "mv")
     _need(pred4, torch.int32, (Rb, Ny, Nx, 2), "pred4")
     N = Ny * Nx
     if uref is not None:
         _need(uref, torch.int32, (N,), "uref")
     elif Rb != R:
         raise ValueError("frac_refine: one batch entry per reference")
-    if target is not None:
-        _need(target, torch.int32, (N, bh, bw), "target")
+    o_uref = o_mv4 = None
+    if other is not None:
+        o_uref, o_mv4 = other
+        _need(o_uref, torch.int32, (N,), "o_uref")
+        _need(o_mv4, torch.int32, (N, 2), "o_mv4")
     if bh % 8 or bw % 8 or Ny * bh > h or Nx * bw > w:
         raise ValueError(f"frac_refine: bad block {bh}x{bw}")
     dev = sub.device
     mv4 = torch.empty((Rb, N, 2), dtype=torch.int32, device=dev)
     satd = torch.empty((Rb, N), dtype=torch.float32, device=dev)
-    _launch("inter_uni", "hm_frac_refine", _ptr(sub), Hp, Wp, _ptr(cur), w,
-            _ptr(target), bh, bw, Ny, Nx, Rb, _ptr(mv_int), _ptr(pred4),
-            _ptr(uref), float(np.float32(lams)), _ptr(mv4), _ptr(satd),
-            _stream(sub))
+    _launch(kernel, "hm_frac_refine", _ptr(sub), Hp, Wp, _ptr(cur), w, bh,
+            bw, Ny, Nx, Rb, _ptr(mv), int(qstart), _ptr(pred4), _ptr(uref),
+            _ptr(o_uref), _ptr(o_mv4), float(np.float32(lams)), _ptr(mv4),
+            _ptr(satd), _stream(sub))
     return mv4, satd
+
+
+def frac_refine(sub, cur, mv_int, pred4, lams, bh, bw):
+    return _frac_refine("inter_uni", sub, cur, mv_int, False, pred4, lams, bh,
+                        bw)
+
+
+def frac_refine_any(sub, cur, mv4, uref, anchor4, o_uref, o_mv4, lams, s):
+    h, w = cur.shape
+    ny, nx = h // s, w // s
+    _need(mv4, torch.int32, (ny * nx, 2), "mv4")
+    _need(anchor4, torch.int32, (ny * nx, 2), "anchor4")
+    out, satd = _frac_refine("inter_bi_refine", sub, cur,
+                             mv4.reshape(1, ny, nx, 2), True,
+                             anchor4.reshape(1, ny, nx, 2), lams, s, s,
+                             uref=uref, other=(o_uref, o_mv4))
+    return out[0], satd[0]
 
 
 def uni_select(mvq, satd, pred4, lmap, nref, lams):
@@ -635,9 +679,9 @@ def _uni_res(e, n):
                                               "cost")])
 
 
-def cu_rd(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf, lams, qp, bd,
-          nmerge):
-    from hm16_2_tpu_torch.encode.inter_plan import NREC
+def _cu_rd_args(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf, lams, qp,
+                bd, nmerge):
+    """CuRdArgs of list 0, the rect shapes and the intra alternative."""
     h, w = cur.shape
     ny, nx = h // s, w // s
     N = ny * nx
@@ -647,9 +691,8 @@ def cu_rd(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf, lams, qp, bd,
     _need(tmvp4, torch.int32, (N, 2), "tmvp4")
     if s not in (8, 16, 32, 64) or N == 0:
         raise ValueError(f"cu_rd: bad CU size {s} for {h}x{w}")
-    dev = cur.device
     t = min(s, 32)
-    tabs = _device_tables(dev)
+    tabs = _device_tables(cur.device)
     a = CuRdArgs(cur=cur.data_ptr(), h=h, w=w, sub=sub.data_ptr(), Hp=Hp,
                  Wp=Wp, nx=nx, uni=_uni_res(uni, N), tmvp4=tmvp4.data_ptr(),
                  ref0=int(ref0), lamf=float(np.float32(lamf)),
@@ -668,11 +711,47 @@ def cu_rd(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf, lams, qp, bd,
         a.has_intra = 1
         a.i_mode, a.i_cost, a.i_top3 = m.data_ptr(), c.data_ptr(), \
             c3.data_ptr()
-    rec = torch.empty((N, NREC), dtype=torch.int32, device=dev)
-    cost = torch.empty((N,), dtype=torch.float32, device=dev)
+    return a, N
+
+
+def _cu_rd_launch(kernel, a, cur, s, N, is_b):
+    from hm16_2_tpu_torch.encode.inter_plan import NREC
+    rec = torch.empty((N, NREC), dtype=torch.int32, device=cur.device)
+    cost = torch.empty((N,), dtype=torch.float32, device=cur.device)
     a.rec, a.cost = rec.data_ptr(), cost.data_ptr()
-    _launch("inter_cu_rd", "hm_cu_rd", ctypes.byref(a), s, N, _stream(cur))
+    _launch(kernel, "hm_cu_rd", ctypes.byref(a), s, N, int(is_b),
+            _stream(cur))
     return rec, cost
+
+
+def cu_rd(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf, lams, qp, bd,
+          nmerge):
+    a, N = _cu_rd_args(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf,
+                       lams, qp, bd, nmerge)
+    return _cu_rd_launch("inter_cu_rd", a, cur, s, N, False)
+
+
+def cu_rd_b(cur, sub, s, uni, tmvp4, first, nref, mvb, rect, intra, lamf,
+            lams, qp, bd, nmerge):
+    a, N = _cu_rd_args(cur, sub, s, uni[0], tmvp4[0], first[0],
+                       None if rect is None else {p: e[0] for p, e in
+                                                  rect.items()},
+                       intra, lamf, lams, qp, bd, nmerge)
+    _need(tmvp4[1], torch.int32, (N, 2), "tmvp4_1")
+    for name, t in (("anchor0", uni[0]["anchor"]),
+                    ("anchor1", uni[1]["anchor"]), ("mvb0", mvb[0]),
+                    ("mvb1", mvb[1])):
+        _need(t, torch.int32, (N, 2), name)
+    a.uni1 = _uni_res(uni[1], N)
+    a.tmvp4_1, a.ref1 = tmvp4[1].data_ptr(), int(first[1])
+    if rect is not None:
+        a.rect1[0] = _uni_res(rect[1][1], 2 * N)
+        a.rect1[1] = _uni_res(rect[2][1], 2 * N)
+    a.anchor0, a.anchor1 = uni[0]["anchor"].data_ptr(), \
+        uni[1]["anchor"].data_ptr()
+    a.mvb0, a.mvb1 = mvb[0].data_ptr(), mvb[1].data_ptr()
+    a.nref0, a.nref1 = int(nref[0]), int(nref[1])
+    return _cu_rd_launch("inter_cu_rd_b", a, cur, s, N, True)
 
 
 # ---------------------------------------------------------------------------

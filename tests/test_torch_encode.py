@@ -1,8 +1,10 @@
 """The port's encoder (hm16_2_tpu_torch.encode.top) against the JAX
-package's: the same Annex-B bytes for all-intra and the P-only structures
-(low-delay P, IPPP, weighted prediction, a pipelined P-only GOP table),
-pictures that decode with their MD5 hash intact, the refusal of every
-configuration that is not ported, and a port that runs with JAX absent.
+package's: the same Annex-B bytes for all-intra, the P structures
+(low-delay P, IPPP, weighted prediction, a pipelined P-only GOP table) and
+the B structures (random access GOP 8 with its pipelined plans, the
+low-delay B flush tail), pictures that decode with their MD5 hash intact,
+the refusal of every configuration that is not ported, and a port that runs
+with JAX absent.
 """
 
 import difflib
@@ -61,11 +63,15 @@ def test_encode_frame_same_bytes(bits, chroma, rdo):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(gop_table=[dict(poc=1, qpoff=1, qpfac=0.5, refs=(-1,), type="B")]),
-    dict(intra_period=-1, gop="ra8"), dict(gop="ra8"),
+    dict(gop_table=[dict(poc=1, qpoff=1, qpfac=0.5, refs=(-1,), type="B")],
+         field_coding=True),
+    dict(intra_period=-1, gop="ra8", target_bps=200000, total_frames=9),
+    dict(gop="ra8", delta_qp_rd=1),
     dict(target_bps=200000, total_frames=4), dict(field_coding=True),
     dict(delta_qp_rd=1)])
 def test_non_intra_configs_refused(kw):
+    """Rate control, field coding and delta_qp_rd are not ported, with any
+    GOP structure."""
     cfg = dict(intra_period=1)
     cfg.update(kw)
     with pytest.raises(NotImplementedError):
@@ -82,6 +88,7 @@ def test_runs_without_jax():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
         "from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig\n"
         "from hm16_2_tpu.decode.top import Decoder\n"
         "rng = np.random.default_rng(0)\n"
@@ -98,6 +105,15 @@ def test_runs_without_jax():
         "       for i, p in enumerate((y, y2))]\n"
         "pics = Decoder().decode_stream(b''.join(aus))\n"
         "assert [p.hash_ok for p in pics] == [True, True]\n"
+        "enc = Encoder(EncoderConfig(64, 64, intra_period=32, gop='ra8'), "
+        "torch.device('cpu'))\n"
+        "aus = []\n"
+        "for i in range(9):\n"
+        "    yi = np.roll(y, (i, 2 * i), (0, 1))\n"
+        "    aus += enc.push_frame([yi, c, c.copy()], i)\n"
+        "aus += enc.flush()\n"
+        "pics = Decoder().decode_stream(b''.join(aus))\n"
+        "assert [p.hash_ok for p in pics] == [True] * 9\n"
         "assert sys.modules['jax'] is None\n"
         "print('ok', len(au))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -232,9 +248,62 @@ def test_p_slice_without_plan_refused(monkeypatch):
         enc.encode_frame(_planes(frames[1]), 1)
 
 
-def test_b_tail_refused():
-    """The low-delay table's tail pictures are B slices: refused."""
+def test_b_tail_refused(monkeypatch):
+    """The low-delay table's tail pictures are B slices: with the host-only
+    inter search switched on they are refused."""
     frames = make_yuv(64, 64, 3, seed=2)
     enc = PT.Encoder(RT.EncoderConfig(64, 64, intra_period=0, gop="ld"), CPU)
+    for poc, f in enumerate(frames):
+        enc.push_frame(_planes(f), poc)
+    monkeypatch.setenv("HM16_NO_INTER_PLAN", "1")
     with pytest.raises(NotImplementedError):
-        _push_all(enc, frames)
+        enc.flush()
+
+
+# ---------------------------------------------------------------------------
+# B structures
+# ---------------------------------------------------------------------------
+
+def _spy_plans(monkeypatch):
+    """Record (POC, slice type, fetch) of every plan the port submits."""
+    calls = []
+    plan_frame = PT.inter_plan.plan_frame
+
+    def spy(*a, **kw):
+        calls.append((a[2].poc, a[2].slice_type, kw.get("fetch", True)))
+        return plan_frame(*a, **kw)
+
+    monkeypatch.setattr(PT.inter_plan, "plan_frame", spy)
+    return calls
+
+
+def test_ra_gop8_stream_same_bytes(monkeypatch):
+    """HM's random-access GOP 8 (RA8_GOP, QP 32, intra period 32): IDR +
+    one GOP of eight hierarchical B pictures through push_frame / flush.
+    The plans of pictures 3, 6 and 7 are enqueued while their predecessors
+    commit, as in the reference."""
+    frames = make_yuv(136, 72, 9, seed=42)
+    cfg = lambda: RT.EncoderConfig(136, 72, qp=32, intra_period=32,
+                                   gop="ra8")
+    ref = _push_all(RT.Encoder(cfg()), frames)
+    calls = _spy_plans(monkeypatch)
+    got = _push_all(PT.Encoder(cfg(), CPU), frames)
+    assert sorted(p for p, _, fetch in calls if not fetch) == [3, 6, 7]
+    assert sorted(p for p, _, _ in calls) == list(range(1, 9))
+    assert all(t == 0 for _, t, _ in calls)               # B slices
+    assert len(got) == 9 and got == ref
+    _decode_ok(b"".join(got), 9)
+
+
+def test_ldp_b_tail_same_bytes(monkeypatch):
+    """Low-delay P over seven frames: IDR, one GOP of four P pictures, and
+    the flush tail's two low-delay B pictures."""
+    frames = make_yuv(136, 72, 7, seed=42)
+    cfg = lambda: RT.EncoderConfig(136, 72, qp=32, intra_period=0, gop="ld")
+    ref = _push_all(RT.Encoder(cfg()), frames)
+    calls = _spy_plans(monkeypatch)
+    got = _push_all(PT.Encoder(cfg(), CPU), frames)
+    assert [(p, t) for p, t, _ in calls] == [(1, 1), (2, 1), (3, 1), (4, 1),
+                                             (5, 0), (6, 0)]
+    assert got == ref
+    _decode_ok(b"".join(got), 7)

@@ -65,6 +65,22 @@ def test_inter_kernels_equal_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lists", [((0, 1), (2, 3)), ((0,), (0,)),
+                                   ((0, 1), (2,))])
+def test_b_kernels_equal_plain(cuda, lists):
+    """K7's bi-refinement mode, K8's B mode, the list picks and K4's
+    emission of B records equal their plain versions at the shapes of a
+    264x200 B picture: two past and two future references, the GPB case
+    (one reference in both lists), and two lists of unequal length."""
+    import chip_smoke
+    frames = make_yuv(264, 200, 5, seed=6)
+    stats = chip_smoke.check_b_kernels(frames, cuda, reps=1, lists=lists)
+    assert all(v["err"] == 0.0 for v in stats.values())
+    assert stats["inter_bi_refine"]["ms"] > 0
+    assert stats["inter_cu_rd_b"]["ms"] > 0
+
+
+@pytest.mark.gpu
 def test_ldp_on_card_equals_cpu(cuda):
     """A low-delay P stream (IDR + one GOP of four P pictures) on the card
     equals the CPU plain path; every kernel of the path was launched."""
@@ -83,7 +99,36 @@ def test_ldp_on_card_equals_cpu(cuda):
 
     kernels.reset_launches()
     on_card = run(cuda)
-    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert all(v > 0 for k, v in kernels.LAUNCHES.items()
+               if k not in ("inter_bi_refine", "inter_cu_rd_b")), \
+        kernels.LAUNCHES
     assert on_card == run(torch.device("cpu"))
     pics = Decoder().decode_stream(b"".join(on_card))
     assert [p.hash_ok for p in pics] == [True] * 5
+
+
+@pytest.mark.gpu
+def test_ra_on_card_equals_cpu(cuda):
+    """A random-access stream (IDR + one GOP of eight B pictures, three of
+    them planned ahead) on the card equals the CPU plain path; every kernel
+    of the B path was launched."""
+    from hm16_2_tpu.decode.top import Decoder
+    from hm16_2_tpu_torch import kernels
+    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
+    frames = make_yuv(136, 72, 9, seed=8)
+    cfg = lambda: EncoderConfig(136, 72, qp=32, intra_period=32, gop="ra8")
+
+    def run(dev):
+        enc, aus = Encoder(cfg(), dev), []
+        for poc, f in enumerate(frames):
+            aus += enc.push_frame([np.ascontiguousarray(p, dtype=np.int32)
+                                   for p in f], poc)
+        return aus + enc.flush()
+
+    kernels.reset_launches()
+    on_card = run(cuda)
+    assert all(v > 0 for k, v in kernels.LAUNCHES.items()
+               if k != "inter_cu_rd"), kernels.LAUNCHES
+    assert on_card == run(torch.device("cpu"))
+    pics = Decoder().decode_stream(b"".join(on_card))
+    assert [p.hash_ok for p in pics] == [True] * 9
