@@ -1,15 +1,21 @@
-// K5 inter_me: dense integer motion estimation of the P-picture plan, for
-// every reference and every block of each CU shape (squares 8..64, the
-// 2NxN / Nx2N PUs of 16..64).
+// K5 inter_me: dense integer motion estimation for every reference and every
+// block of each CU shape.  Two callers, which differ only in the bit model
+// that prices the MV and in their outputs:
 //
-// Replaces `_int_me_grids` and `_me_shape` (hm16_2_tpu/encode/inter_plan.py
-// :134-287).  Launches: the 4x box downsample of the current picture and
-// the references; the coarse SSD of every 8x8 block at 33x33 offsets of the
+// - the P/B plan (`_int_me_grids`, `_me_shape`, hm16_2_tpu/encode/
+//   inter_plan.py:134-287): squares 8..64 and the 2NxN / Nx2N PUs of
+//   16..64, priced by exact MVD bins (`mvd_bits`), MVs out;
+// - the fallback's frame ME (`me_frame`, hm16_2_tpu/encode/inter_me.py:47):
+//   squares 8..64, priced by 2*log2(|d| + 1) + 1 per component (`mv_bits`,
+//   computed with XLA:CPU's float32 log), MVs and their costs out.
+//
+// Launches: the 4x box downsample of the current picture and the
+// references; the coarse SSD of every 8x8 block at 33x33 offsets of the
 // downsampled planes (edge indices clamped, in place of the reference's
 // edge padding); the float32 pyramid sums to 16/32/64; per block shape, the
-// coarse argmin of g + lamf * MVD bins (rect shapes sum two half-size
-// cells on the fly); the +-3 full-pel SSE refinement around the coarse
-// winner and around zero.
+// coarse argmin of g + lamf * bits (rect shapes sum two half-size cells on
+// the fly); the +-3 full-pel SSE refinement around the coarse winner and
+// around zero.
 //
 // What bounds it: the coarse grid, 1089 offsets x 4 samples per 8x8 block
 // and reference (at 1080p with 4 references, 141M float32 = 564 MB written
@@ -30,6 +36,50 @@ constexpr int kCoarseR = 16;
 constexpr int kNOff = (2 * kCoarseR + 1) * (2 * kCoarseR + 1);
 constexpr int kRefineR = 3;
 constexpr int kNRef = (2 * kRefineR + 1) * (2 * kRefineR + 1);
+
+// XLA:CPU's float32 natural log for a positive normal x: the Cephes
+// polynomial of its LLVM IR, with every product that has one use fused into
+// the add that consumes it, as its backend contracts them
+__device__ __forceinline__ float xla_logf(float x) {
+  int b = __float_as_int(x);
+  int e = (int)((unsigned)b >> 23) - 127;
+  float m = __int_as_float((b & 0x807FFFFF) | 0x3F000000);   // [0.5, 1)
+  float ef = __fadd_rn(1.f, __int2float_rn(e));
+  bool lo = m < 0x1.6a09e6p-1f;                             // sqrt(1/2)
+  float xx = __fadd_rn(__fsub_rn(m, 1.f), lo ? m : 0.f);
+  ef = __fsub_rn(ef, lo ? 1.f : 0.f);
+  float x2 = __fmul_rn(xx, xx), x3 = __fmul_rn(x2, xx);
+  float y = __fmaf_rn(xx, 0x1.204376p-4f, -0x1.d7a37p-4f);
+  float y1 = __fmaf_rn(xx, -0x1.fcba9ep-4f, 0x1.23d37ep-3f);
+  float y2 = __fmaf_rn(xx, 0x1.999d58p-3f, -0x1.fffff8p-3f);
+  y = __fmaf_rn(y, xx, 0x1.de4a34p-4f);
+  y1 = __fmaf_rn(y1, xx, -0x1.555ca0p-3f);
+  y2 = __fmaf_rn(y2, xx, 0x1.555554p-2f);
+  y = __fmaf_rn(y, x3, y1);
+  y = __fmaf_rn(y, x3, y2);
+  y = __fmaf_rn(y, x3, __fmul_rn(-0x1.bd0106p-13f, ef));
+  float r = __fadd_rn(__fsub_rn(xx, __fmul_rn(0.5f, x2)), y);
+  return __fmaf_rn(0x1.63p-1f, ef, r);
+}
+
+// me_frame's bits of one full-pel-domain MV delta component,
+// 2*log2(|d| + 1) + 1: log2 is ln * 1.44269502, the 2 folded into that
+// constant, the + 1 fused
+__device__ __forceinline__ float mv_comp_bits(int d) {
+  int a = d < 0 ? -d : d;
+  return __fmaf_rn(xla_logf(__fadd_rn(__int2float_rn(a), 1.f)),
+                   0x1.715476p+1f, 1.f);
+}
+
+// the two bit models, a template parameter of the argmin and refinement
+struct MvdBins {           // the plan: exact MVD bins
+  __device__ static float bits(int dx, int dy) { return mvd_bits(dx, dy); }
+};
+struct MvLog {             // me_frame: the approximate log model
+  __device__ static float bits(int dx, int dy) {
+    return __fadd_rn(mv_comp_bits(dy), mv_comp_bits(dx));
+  }
+};
 
 __global__ void me_down_kernel(const int* __restrict__ src, int P, int h,
                                int w, int hc, int wc, int* __restrict__ out) {
@@ -83,6 +133,7 @@ __global__ void me_quad_kernel(const float* __restrict__ p, long long RO,
 // coarse argmin per (reference, block) of one shape.  mode 0: the grid is
 // the shape's own (R, O, gy, gx); mode 1 (2NxN): sum of x-pairs of the half
 // grid; mode 2 (Nx2N): sum of y-pairs.  mvp: (R, Ny, Nx, 2) full-pel prior.
+template <class Bits>
 __global__ void me_argmin_kernel(const float* __restrict__ g, int gy, int gx,
                                  int mode, int R, int Ny, int Nx,
                                  const int* __restrict__ mvp, float lam,
@@ -102,7 +153,7 @@ __global__ void me_argmin_kernel(const float* __restrict__ g, int gy, int gx,
                         : __fadd_rn(go[(2 * by) * gx + bx], go[(2 * by + 1) * gx + bx]);
     int oy = o / (2 * kCoarseR + 1) - kCoarseR;
     int ox = o % (2 * kCoarseR + 1) - kCoarseR;
-    float c = __fmaf_rn(lam, mvd_bits(4 * (ox - px), 4 * (oy - py)), v);
+    float c = __fmaf_rn(lam, Bits::bits(4 * (ox - px), 4 * (oy - py)), v);
     if (o == 0 || c < best_v) { best = o; best_v = c; }
   }
   coarse[q * 2] = 4 * (best / (2 * kCoarseR + 1) - kCoarseR);
@@ -110,12 +161,15 @@ __global__ void me_argmin_kernel(const float* __restrict__ g, int gy, int gx,
 }
 
 // +-3 full-pel SSE refinement around the coarse winner and around zero;
-// one CTA per (block, reference): grid (N, R)
+// one CTA per (block, reference): grid (N, R).  cost_out, when given,
+// receives the winner's cost beside its MV.
+template <class Bits>
 __global__ void me_refine_kernel(const int* __restrict__ cur, int h, int w,
                                  const int* __restrict__ refs, int bh, int bw,
                                  int Nx, const int* __restrict__ coarse,
                                  const int* __restrict__ mvp, float lam,
-                                 int* __restrict__ out) {
+                                 int* __restrict__ out,
+                                 float* __restrict__ cost_out) {
   __shared__ int sse[2][kNRef];
   int n = blockIdx.x, r = blockIdx.y, N = gridDim.x;
   for (int q = threadIdx.x; q < 2 * kNRef; q += blockDim.x)
@@ -152,7 +206,7 @@ __global__ void me_refine_kernel(const int* __restrict__ cur, int h, int w,
       float best_v = 0.f;
       for (int k = 0; k < kNRef; ++k) {
         int my = cy + k / 7 - kRefineR, mx = cx + k % 7 - kRefineR;
-        float c = __fmaf_rn(lam, mvd_bits(4 * (mx - px), 4 * (my - py)),
+        float c = __fmaf_rn(lam, Bits::bits(4 * (mx - px), 4 * (my - py)),
                             __int2float_rn(sse[cc][k]));
         if (k == 0 || c < best_v) { best = k; best_v = c; }
       }
@@ -163,6 +217,7 @@ __global__ void me_refine_kernel(const int* __restrict__ cur, int h, int w,
     int pick = cost[0] <= cost[1] ? 0 : 1;
     out[e * 2] = mv[pick][0];
     out[e * 2 + 1] = mv[pick][1];
+    if (cost_out) cost_out[e] = cost[pick];
   }
 }
 
@@ -196,25 +251,37 @@ extern "C" int hm_me_quad(const float* p, long long RO, int py, int px,
   return (int)cudaGetLastError();
 }
 
+// model 0: the plan's MVD bins; 1: me_frame's log model
 extern "C" int hm_me_argmin(const float* g, int gy, int gx, int mode, int R,
                             int Ny, int Nx, const int* mvp, float lam,
-                            int* coarse, void* stream) {
-  if (R <= 0 || Ny <= 0 || Nx <= 0 || mode < 0 || mode > 2)
+                            int model, int* coarse, void* stream) {
+  if (R <= 0 || Ny <= 0 || Nx <= 0 || mode < 0 || mode > 2 || model < 0 ||
+      model > 1)
     return (int)cudaErrorInvalidValue;
-  hm::me_argmin_kernel<<<hm::blocks_of((long long)R * Ny * Nx), 256, 0,
-                         (cudaStream_t)stream>>>(g, gy, gx, mode, R, Ny, Nx,
-                                                 mvp, lam, coarse);
+  unsigned nb = hm::blocks_of((long long)R * Ny * Nx);
+  if (model == 0)
+    hm::me_argmin_kernel<hm::MvdBins><<<nb, 256, 0, (cudaStream_t)stream>>>(
+        g, gy, gx, mode, R, Ny, Nx, mvp, lam, coarse);
+  else
+    hm::me_argmin_kernel<hm::MvLog><<<nb, 256, 0, (cudaStream_t)stream>>>(
+        g, gy, gx, mode, R, Ny, Nx, mvp, lam, coarse);
   return (int)cudaGetLastError();
 }
 
+// model as hm_me_argmin; cost may be null
 extern "C" int hm_me_refine(const int* cur, int h, int w, const int* refs,
                             int R, int bh, int bw, int Ny, int Nx,
                             const int* coarse, const int* mvp, float lam,
-                            int* out, void* stream) {
-  if (R <= 0 || Ny <= 0 || Nx <= 0 || (bh * bw) % 32 != 0)
+                            int model, int* out, float* cost, void* stream) {
+  if (R <= 0 || Ny <= 0 || Nx <= 0 || (bh * bw) % 32 != 0 || model < 0 ||
+      model > 1)
     return (int)cudaErrorInvalidValue;
   dim3 grid(Ny * Nx, R);
-  hm::me_refine_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      cur, h, w, refs, bh, bw, Nx, coarse, mvp, lam, out);
+  if (model == 0)
+    hm::me_refine_kernel<hm::MvdBins><<<grid, 128, 0, (cudaStream_t)stream>>>(
+        cur, h, w, refs, bh, bw, Nx, coarse, mvp, lam, out, cost);
+  else
+    hm::me_refine_kernel<hm::MvLog><<<grid, 128, 0, (cudaStream_t)stream>>>(
+        cur, h, w, refs, bh, bw, Nx, coarse, mvp, lam, out, cost);
   return (int)cudaGetLastError();
 }

@@ -56,8 +56,8 @@ import weakref
 import numpy as np
 import torch
 
-from hm16_2_tpu.common.tables import LUMA_FILTER
-from hm16_2_tpu.headers.params import B_SLICE
+from hm16_2_tpu_torch.common.tables import LUMA_FILTER
+from hm16_2_tpu_torch.headers.params import B_SLICE
 from hm16_2_tpu_torch import kernels
 from hm16_2_tpu_torch.encode import intra_rd
 from hm16_2_tpu_torch.encode.intra_rd import _bit_length, _f32, _fma32, \
@@ -193,25 +193,32 @@ def _quad4(p, ny, nx):
         + q[..., 1::2, 1::2]
 
 
-def _me_shape_plain(cur, refs, grid, mvp, lamf, bh, bw):
+def _me_shape_plain(cur, refs, grid, mvp, lamf, bh, bw,
+                    comp_bits=_mvd_comp_bits):
     """Best full-pel MV (R, Ny, Nx, 2) of one block shape from its coarse
-    grid (R, 1089, Ny, Nx) and its per-reference prior (R, Ny, Nx, 2)."""
+    grid (R, 1089, Ny, Nx) and its per-reference prior (R, Ny, Nx, 2), and
+    its cost (R, Ny*Nx) float32.  comp_bits: the bits of one MV delta
+    component (the plan's MVD bins; inter_me's log model)."""
     R, O, Ny, Nx = grid.shape
     N = Ny * Nx
     dev = cur.device
-    offs = _offsets(COARSE_R, dev)
     roffs = _offsets(REFINE_R, dev)
     g = grid.reshape(R, O, N)
     mvp = mvp.reshape(R, N, 2)
-    mvb = _mvd_bits(4 * (offs[None, :, None, 1] - mvp[:, None, :, 1]),
-                    4 * (offs[None, :, None, 0] - mvp[:, None, :, 0]))
+    # the two components' bits are separable: (R, 33, N) each, summed
+    a = torch.arange(-COARSE_R, COARSE_R + 1, device=dev, dtype=torch.int32)
+    by = comp_bits(4 * (a[None, :, None] - mvp[:, None, :, 0]))
+    bx = comp_bits(4 * (a[None, :, None] - mvp[:, None, :, 1]))
+    mvb = (bx[:, None, :, :] + by[:, :, None, :]).reshape(R, O, N)
     lam = _f32(lamf, g)
+    offs = _offsets(COARSE_R, dev)
     best_o = torch.argmin(_fma32(lam.expand_as(mvb), mvb, g), dim=1)
     coarse = 4 * offs[best_o]                              # (R, N, 2)
     ys, xs = _grid_origins(bh, bw, Ny, Nx, dev)
     blocks = _grid_blocks(cur, bh, bw, Ny, Nx)
     rr = REFINE_R
     out = torch.empty((R, N, 2), dtype=torch.int32, device=dev)
+    out_cost = torch.empty((R, N), dtype=torch.float32, device=dev)
     for r in range(R):
         cands = []
         for centers in (coarse[r], torch.zeros_like(coarse[r])):
@@ -229,15 +236,16 @@ def _me_shape_plain(cur, refs, grid, mvp, lamf, bh, bw):
                                 .to(torch.float32))
             sse = torch.stack(cols, 1)                     # (N, 49)
             mv_cand = centers[:, None, :] + roffs[None]
-            bits = _mvd_bits(4 * (mv_cand[:, :, 1] - mvp[r][:, None, 1]),
-                             4 * (mv_cand[:, :, 0] - mvp[r][:, None, 0]))
+            bits = comp_bits(4 * (mv_cand[:, :, 1] - mvp[r][:, None, 1])) + \
+                comp_bits(4 * (mv_cand[:, :, 0] - mvp[r][:, None, 0]))
             cost = _fma32(lam.expand_as(bits), bits, sse)
             k = torch.argmin(cost, dim=1)
             cands.append((mv_cand[torch.arange(N, device=dev), k],
                           cost[torch.arange(N, device=dev), k]))
         better = cands[0][1] <= cands[1][1]
         out[r] = torch.where(better[:, None], cands[0][0], cands[1][0])
-    return out.reshape(R, Ny, Nx, 2)
+        out_cost[r] = torch.where(better, cands[0][1], cands[1][1])
+    return out.reshape(R, Ny, Nx, 2), out_cost
 
 
 def _me_mvp(mvp8, s, part):
@@ -281,7 +289,7 @@ def _int_me_plain(cur, refs, mvp8, lamf, h, w, parts):
                 half[:, :, 0::2] + half[:, :, 1::2]
         mvp = _me_mvp(mvp8, s, part)[:, :Ny, :Nx]
         out[(s, part)] = _me_shape_plain(cur, refs, g.contiguous(), mvp,
-                                         lamf, bh, bw)
+                                         lamf, bh, bw)[0]
     return out
 
 

@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hm16_2_tpu.common.tables import INV_QUANT_SCALES
+from hm16_2_tpu_torch.common.tables import INV_QUANT_SCALES
 from hm16_2_tpu_torch import kernels
 from hm16_2_tpu_torch.ops import analysis
 

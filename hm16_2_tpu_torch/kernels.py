@@ -14,7 +14,10 @@ and contiguity, launch, and raise if `cudaGetLastError()` is not 0.
     K4 plan_dp        csrc/plan_dp.cu    (chroma fold, 64x64 level, DP,
                                           emission of both plans)
     K5 inter_me       csrc/inter_me.cu   (downsample, coarse grid, pyramid,
-                                          argmin, refinement)
+                                          argmin, refinement; the plan's
+                                          MVD-bin model)
+       me_frame                          (K5 with me_frame's log bit model
+                                          and the winners' costs)
     K6 subpel_planes  csrc/subpel.cu
     K7 inter_uni      csrc/inter_rd.cu   (q-pel refinement, list pick)
        inter_bi_refine                   (K7's per-block-reference mode:
@@ -41,9 +44,9 @@ import time
 import numpy as np
 import torch
 
-from hm16_2_tpu.common.tables import ANG_TABLE, DCT, DST4, INV_ANG_TABLE, \
+from hm16_2_tpu_torch.common.tables import ANG_TABLE, DCT, DST4, INV_ANG_TABLE, \
     INV_QUANT_SCALES, QUANT_SCALES
-from hm16_2_tpu.ops.intra_ref import should_filter
+from hm16_2_tpu_torch.ops.intra_ref import should_filter
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
@@ -56,7 +59,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"ref_buffers": 0, "intra_size_rd": 0, "intra_cand_rd": 0,
             "plan_dp": 0, "inter_me": 0, "subpel_planes": 0, "inter_uni": 0,
-            "inter_bi_refine": 0, "inter_cu_rd": 0, "inter_cu_rd_b": 0}
+            "inter_bi_refine": 0, "inter_cu_rd": 0, "inter_cu_rd_b": 0,
+            "me_frame": 0}
 
 
 def reset_launches():
@@ -200,8 +204,8 @@ def _load():
         "hm_me_down": [P, I, I, I, I, I, P, P],
         "hm_me_coarse8": [P, P, I, I, I, I, I, P, P],
         "hm_me_quad": [P, ctypes.c_longlong, I, I, I, I, P, P],
-        "hm_me_argmin": [P, I, I, I, I, I, I, P, F, P, P],
-        "hm_me_refine": [P, I, I, P, I, I, I, I, I, P, P, F, P, P],
+        "hm_me_argmin": [P, I, I, I, I, I, I, P, F, I, P, P],
+        "hm_me_refine": [P, I, I, P, I, I, I, I, I, P, P, F, I, P, P, P],
         "hm_subpel_planes": [P, I, I, I, I, P, P],
         "hm_frac_refine": [P, I, I, P, I, I, I, I, I, I, P, I, P, P, P, P, F,
                            P, P, P],
@@ -529,48 +533,83 @@ def plan_dp(lam, h, w, mode_s, cost_s, cand_s, cmode_s, chroma_add32, d64,
 # K5
 # ---------------------------------------------------------------------------
 
-def inter_me(cur, refs, mvp8, lams, h, w, parts):
-    from hm16_2_tpu_torch.encode.inter_plan import _me_mvp, _shapes
+_ME_BINS, _ME_LOG = 0, 1          # K5's bit models (csrc/inter_me.cu)
+
+
+def _me_grids(kernel, cur, refs, mvp8, h, w):
+    """K5's shared front: the float32 coarse grids (R, 1089, h/s, w/s) of
+    the squares s = 8..64, launches counted under `kernel`."""
     R = refs.shape[0]
     _need(cur, torch.int32, (h, w), "cur")
     _need(refs, torch.int32, (R, h, w), "refs")
     _need(mvp8, torch.int32, (R, h // 8, w // 8, 2), "mvp8")
     dev = cur.device
     st = _stream(cur)
-    lam = float(np.float32(lams))
     hc, wc = h // 4, w // 4
     n8y, n8x = h // 8, w // 8
     if not (R and n8y and n8x):
-        raise ValueError(f"inter_me: no 8x8 block in {h}x{w} or no reference")
+        raise ValueError(f"{kernel}: no 8x8 block in {h}x{w} or no reference")
     cd = torch.empty((hc, wc), dtype=torch.int32, device=dev)
     rd = torch.empty((R, hc, wc), dtype=torch.int32, device=dev)
-    _launch("inter_me", "hm_me_down", _ptr(cur), 1, h, w, hc, wc, _ptr(cd),
-            st)
-    _launch("inter_me", "hm_me_down", _ptr(refs), R, h, w, hc, wc, _ptr(rd),
-            st)
+    _launch(kernel, "hm_me_down", _ptr(cur), 1, h, w, hc, wc, _ptr(cd), st)
+    _launch(kernel, "hm_me_down", _ptr(refs), R, h, w, hc, wc, _ptr(rd), st)
     O = 33 * 33
     grids = {8: torch.empty((R, O, n8y, n8x), dtype=torch.float32,
                             device=dev)}
-    _launch("inter_me", "hm_me_coarse8", _ptr(cd), _ptr(rd), R, hc, wc, n8y,
-            n8x, _ptr(grids[8]), st)
+    _launch(kernel, "hm_me_coarse8", _ptr(cd), _ptr(rd), R, hc, wc, n8y, n8x,
+            _ptr(grids[8]), st)
     for s in (16, 32, 64):
         ny, nx = h // s, w // s
         p = grids[s // 2]
         grids[s] = torch.empty((R, O, ny, nx), dtype=torch.float32, device=dev)
         if ny and nx:
-            _launch("inter_me", "hm_me_quad", _ptr(p), R * O, p.shape[2],
+            _launch(kernel, "hm_me_quad", _ptr(p), R * O, p.shape[2],
                     p.shape[3], ny, nx, _ptr(grids[s]), st)
+    return grids
+
+
+def inter_me(cur, refs, mvp8, lams, h, w, parts):
+    from hm16_2_tpu_torch.encode.inter_plan import _me_mvp, _shapes
+    R = refs.shape[0]
+    grids = _me_grids("inter_me", cur, refs, mvp8, h, w)
+    dev, st, lam = cur.device, _stream(cur), float(np.float32(lams))
     out = {}
     for s, part, bh, bw, Ny, Nx in _shapes(h, w, parts):
         g = grids[s] if part == 0 else grids[s // 2]
         mvp = _me_mvp(mvp8, s, part)[:, :Ny, :Nx].contiguous()
         coarse = torch.empty((R, Ny * Nx, 2), dtype=torch.int32, device=dev)
         _launch("inter_me", "hm_me_argmin", _ptr(g), g.shape[2], g.shape[3],
-                part, R, Ny, Nx, _ptr(mvp), lam, _ptr(coarse), st)
+                part, R, Ny, Nx, _ptr(mvp), lam, _ME_BINS, _ptr(coarse), st)
         mv = torch.empty((R, Ny, Nx, 2), dtype=torch.int32, device=dev)
         _launch("inter_me", "hm_me_refine", _ptr(cur), h, w, _ptr(refs), R,
-                bh, bw, Ny, Nx, _ptr(coarse), _ptr(mvp), lam, _ptr(mv), st)
+                bh, bw, Ny, Nx, _ptr(coarse), _ptr(mvp), lam, _ME_BINS,
+                _ptr(mv), None, st)
         out[(s, part)] = mv
+    return out
+
+
+def me_frame(cur, refs, mvp8, lam, h, w):
+    """K5 in me_frame's mode: {s: (mv (R, N, 2) int32 full-pel (dy, dx),
+    cost (R, N) float32)} for the squares s = 8..64 that fit in h x w."""
+    R = refs.shape[0]
+    grids = _me_grids("me_frame", cur, refs, mvp8, h, w)
+    dev, st, lamf = cur.device, _stream(cur), float(np.float32(lam))
+    out = {}
+    for s in (8, 16, 32, 64):
+        ny, nx = h // s, w // s
+        if not (ny and nx):
+            continue
+        g = grids[s]
+        mvp = mvp8[:, ::s // 8, ::s // 8][:, :ny, :nx].contiguous()
+        coarse = torch.empty((R, ny * nx, 2), dtype=torch.int32, device=dev)
+        _launch("me_frame", "hm_me_argmin", _ptr(g), ny, nx, 0, R, ny, nx,
+                _ptr(mvp), lamf, _ME_LOG, _ptr(coarse), st)
+        mv = torch.empty((R, ny * nx, 2), dtype=torch.int32, device=dev)
+        cost = torch.empty((R, ny * nx), dtype=torch.float32, device=dev)
+        _launch("me_frame", "hm_me_refine", _ptr(cur), h, w, _ptr(refs), R, s,
+                s, ny, nx, _ptr(coarse), _ptr(mvp), lamf, _ME_LOG, _ptr(mv),
+                _ptr(cost), st)
+        out[s] = (mv, cost)
     return out
 
 

@@ -24,9 +24,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from hm16_2_tpu.common.tables import ANG_TABLE, DCT, DST4, INV_ANG_TABLE, \
+from hm16_2_tpu_torch.common.tables import ANG_TABLE, DCT, DST4, INV_ANG_TABLE, \
     QUANT_SCALES
-from hm16_2_tpu.ops.intra_ref import HOR_IDX, PLANAR_IDX, VER_IDX, \
+from hm16_2_tpu_torch.ops.intra_ref import HOR_IDX, PLANAR_IDX, VER_IDX, \
     should_filter
 
 

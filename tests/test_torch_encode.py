@@ -2,13 +2,12 @@
 package's: the same Annex-B bytes for all-intra, the P structures
 (low-delay P, IPPP, weighted prediction, a pipelined P-only GOP table) and
 the B structures (random access GOP 8 with its pipelined plans, the
-low-delay B flush tail), pictures that decode with their MD5 hash intact,
-the refusal of every configuration that is not ported, and a port that runs
-with JAX absent.
+low-delay B flush tail), the encoder CLI, pictures that decode with their
+MD5 hash intact, the refusal of every configuration that is not ported, and
+a port that runs with JAX and the JAX package absent.  The per-CU inter
+search (no fused plan) is in test_torch_inter_me_encode.py.
 """
 
-import difflib
-import inspect
 import os
 import subprocess
 import sys
@@ -19,6 +18,7 @@ import torch
 
 from hm16_2_tpu.decode.top import Decoder
 from hm16_2_tpu.encode import top as RT
+from hm16_2_tpu_torch.encode import inter_plan as PP
 from hm16_2_tpu_torch.encode import top as PT
 from make_fixtures import make_yuv
 
@@ -83,64 +83,65 @@ def test_device_is_required():
         PT.Encoder(RT.EncoderConfig(64, 64, intra_period=1), "cpu")
 
 
-def test_runs_without_jax():
-    code = (
-        "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "import numpy as np, torch\n"
-        "torch.set_num_threads(1)\n"
-        "from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig\n"
-        "from hm16_2_tpu.decode.top import Decoder\n"
-        "rng = np.random.default_rng(0)\n"
-        "y = rng.integers(0, 256, (64, 64)).astype(np.int32)\n"
-        "c = rng.integers(0, 256, (32, 32)).astype(np.int32)\n"
-        "enc = Encoder(EncoderConfig(64, 64, intra_period=1), "
-        "torch.device('cpu'))\n"
-        "au = enc.encode_frame([y, c, c.copy()], 0)\n"
-        "assert Decoder().decode_stream(au)[0].hash_ok is True\n"
-        "enc = Encoder(EncoderConfig(64, 64, intra_period=8), "
-        "torch.device('cpu'))\n"
-        "y2 = np.roll(y, (1, 2), (0, 1))\n"
-        "aus = [enc.encode_frame([p, c, c.copy()], i)\n"
-        "       for i, p in enumerate((y, y2))]\n"
-        "pics = Decoder().decode_stream(b''.join(aus))\n"
-        "assert [p.hash_ok for p in pics] == [True, True]\n"
-        "enc = Encoder(EncoderConfig(64, 64, intra_period=32, gop='ra8'), "
-        "torch.device('cpu'))\n"
-        "aus = []\n"
-        "for i in range(9):\n"
-        "    yi = np.roll(y, (i, 2 * i), (0, 1))\n"
-        "    aus += enc.push_frame([yi, c, c.copy()], i)\n"
-        "aus += enc.flush()\n"
-        "pics = Decoder().decode_stream(b''.join(aus))\n"
-        "assert [p.hash_ok for p in pics] == [True] * 9\n"
-        "assert sys.modules['jax'] is None\n"
-        "print('ok', len(au))\n")
+def test_runs_without_jax(tmp_path):
+    """With jax and the whole JAX package unimportable, the port encodes
+    all-intra, low-delay P, random access and the per-CU inter search,
+    decodes each stream with its own decoder (every hash intact), runs its
+    encoder and decoder CLIs, and loads no module of the JAX package."""
+    code = """
+import os, sys
+sys.modules['jax'] = None
+sys.modules['hm16_2_tpu'] = None
+import numpy as np, torch
+torch.set_num_threads(1)
+from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
+from hm16_2_tpu_torch.decode.top import Decoder
+from hm16_2_tpu_torch.io.yuv import write_yuv_frame
+from hm16_2_tpu_torch.tools import decode, encode
+CPU = torch.device('cpu')
+rng = np.random.default_rng(0)
+y = rng.integers(0, 256, (64, 64)).astype(np.int32)
+c = rng.integers(0, 256, (32, 32)).astype(np.int32)
+frames = [[np.roll(y, (i, 2 * i), (0, 1)), c, c.copy()] for i in range(9)]
+
+def ok(aus, n):
+    pics = Decoder().decode_stream(b''.join(aus))
+    assert [p.hash_ok for p in pics] == [True] * n
+
+def push(cfg, k):
+    enc, aus = Encoder(cfg, CPU), []
+    for i in range(k):
+        aus += enc.push_frame(frames[i], i)
+    return aus + enc.flush()
+
+enc = Encoder(EncoderConfig(64, 64, intra_period=1), CPU)
+ok([enc.encode_frame(frames[0], 0)], 1)
+ok(push(EncoderConfig(64, 64, intra_period=0, gop='ld'), 5), 5)
+ok(push(EncoderConfig(64, 64, intra_period=32, gop='ra8'), 9), 9)
+os.environ['HM16_NO_INTER_PLAN'] = '1'
+enc = Encoder(EncoderConfig(64, 64, intra_period=8, rrsp=True), CPU)
+ok([enc.encode_frame(f, i) for i, f in enumerate(frames[:3])], 3)
+del os.environ['HM16_NO_INTER_PLAN']
+d = sys.argv[1]
+with open(os.path.join(d, 'in.yuv'), 'wb') as f:
+    for fr in frames[:3]:
+        write_yuv_frame(f, fr, [8, 8, 8])
+assert encode.main(['-c', 'cfg/encoder_lowdelay_P_main.cfg',
+                    '-i', os.path.join(d, 'in.yuv'),
+                    '-b', os.path.join(d, 'out.bin'), '-wdt', '64',
+                    '-hgt', '64', '-f', '3', '--Device', 'cpu']) == 0
+with open(os.path.join(d, 'out.bin'), 'rb') as f:
+    ok([f.read()], 3)
+assert decode.main([os.path.join(d, 'out.bin')]) == 0
+assert sys.modules['jax'] is None and sys.modules['hm16_2_tpu'] is None
+assert not [m for m in sys.modules if m.startswith('hm16_2_tpu.')]
+print('ok')
+"""
     env = dict(os.environ, PYTHONPATH=ROOT)
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=300)
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.startswith("ok ")
-
-
-def _blocks(src, start, end):
-    lines = src.splitlines()
-    i = next(k for k, ln in enumerate(lines) if start in ln)
-    j = next(k for k, ln in enumerate(lines) if end in ln)
-    return lines[:i], lines[j:]
-
-
-def test_encode_one_copy_differs_only_in_plan_block():
-    """The port's _encode_one is the reference's with only the plan and
-    P/B block (from building CtuSearch to the commit pass) replaced."""
-    ref = inspect.getsource(RT.Encoder._encode_one)
-    got = inspect.getsource(PT.Encoder._encode_one)
-    start, end = "search = CtuSearch(", "# pass 1: mode decisions"
-    ref_head, ref_tail = _blocks(ref, start, end)
-    got_head, got_tail = _blocks(got, start, end)
-    diff = list(difflib.unified_diff(ref_head + ref_tail,
-                                     got_head + got_tail, lineterm=""))
-    assert not diff, "\n".join(diff)
+    assert r.stdout.splitlines()[-1] == "ok"
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +166,38 @@ def test_ldp_stream_same_bytes():
     assert len(got) == 5 and got == ref
     assert enc.stage_ms.get("plan", 0) > 0
     _decode_ok(b"".join(got), 5)
+
+
+def test_cli_same_bytes(tmp_path):
+    """The port's encoder CLI (`--Device cpu`) and the reference's, run on
+    the same cfg (HM's Low Delay P Main) and 136x72 YUV, write the same
+    stream."""
+    from hm16_2_tpu.tools import encode as RE
+    from hm16_2_tpu_torch.tools import encode as PE
+    from make_fixtures import write_yuv
+    yuv = tmp_path / "in.yuv"
+    write_yuv(str(yuv), make_yuv(136, 72, 5, seed=42))
+    args = ["-c", os.path.join(ROOT, "cfg", "encoder_lowdelay_P_main.cfg"),
+            "-i", str(yuv), "-wdt", "136", "-hgt", "72", "-f", "5"]
+    assert RE.main(args + ["-b", str(tmp_path / "ref.bin")]) == 0
+    assert PE.main(args + ["-b", str(tmp_path / "got.bin"),
+                           "--Device", "cpu"]) == 0
+    got = (tmp_path / "got.bin").read_bytes()
+    assert got == (tmp_path / "ref.bin").read_bytes()
+    _decode_ok(got, 5)
+
+
+@pytest.mark.parametrize("opts", [
+    ["--RateControl=1", "--TargetBitrate=200000"], ["--FieldCoding=1"],
+    ["--DeltaQpRD=1"]])
+def test_cli_refuses_unported(tmp_path, opts):
+    """The CLI builds the port's Encoder, which refuses rate control, field
+    coding and delta_qp_rd before reading any input."""
+    from hm16_2_tpu_torch.tools import encode as PE
+    with pytest.raises(NotImplementedError):
+        PE.main(["-i", str(tmp_path / "none.yuv"), "-b",
+                 str(tmp_path / "out.bin"), "-wdt", "64", "-hgt", "64",
+                 "--Device", "cpu"] + opts)
 
 
 def test_ippp_encode_frame_same_bytes():
@@ -216,48 +249,17 @@ def test_p_table_predispatch_same_bytes(monkeypatch):
                                    gop_table=_P_TABLE)
     ref = _push_all(RT.Encoder(cfg()), frames)
     calls = []
-    plan_frame = PT.inter_plan.plan_frame
+    plan_frame = PP.plan_frame
 
     def spy(*a, **kw):
         calls.append(kw.get("fetch", True))
         return plan_frame(*a, **kw)
 
-    monkeypatch.setattr(PT.inter_plan, "plan_frame", spy)
+    monkeypatch.setattr(PP, "plan_frame", spy)
     got = _push_all(PT.Encoder(cfg(), CPU), frames)
     assert calls.count(False) == 1 and calls.count(True) == 2
     assert got == ref
     _decode_ok(b"".join(got), 4)
-
-
-@pytest.mark.parametrize("var", ["HM16_NO_INTER_PLAN", "HM16_EXACT_RD"])
-def test_host_only_inter_search_refused(monkeypatch, var):
-    frames = make_yuv(64, 64, 2, seed=1)
-    enc = PT.Encoder(RT.EncoderConfig(64, 64, intra_period=8), CPU)
-    enc.encode_frame(_planes(frames[0]), 0)
-    monkeypatch.setenv(var, "1")
-    with pytest.raises(NotImplementedError):
-        enc.encode_frame(_planes(frames[1]), 1)
-
-
-def test_p_slice_without_plan_refused(monkeypatch):
-    frames = make_yuv(64, 64, 2, seed=1)
-    enc = PT.Encoder(RT.EncoderConfig(64, 64, intra_period=8), CPU)
-    enc.encode_frame(_planes(frames[0]), 0)
-    monkeypatch.setattr(PT.inter_plan, "plan_frame", lambda *a, **k: None)
-    with pytest.raises(NotImplementedError):
-        enc.encode_frame(_planes(frames[1]), 1)
-
-
-def test_b_tail_refused(monkeypatch):
-    """The low-delay table's tail pictures are B slices: with the host-only
-    inter search switched on they are refused."""
-    frames = make_yuv(64, 64, 3, seed=2)
-    enc = PT.Encoder(RT.EncoderConfig(64, 64, intra_period=0, gop="ld"), CPU)
-    for poc, f in enumerate(frames):
-        enc.push_frame(_planes(f), poc)
-    monkeypatch.setenv("HM16_NO_INTER_PLAN", "1")
-    with pytest.raises(NotImplementedError):
-        enc.flush()
 
 
 # ---------------------------------------------------------------------------
@@ -267,13 +269,13 @@ def test_b_tail_refused(monkeypatch):
 def _spy_plans(monkeypatch):
     """Record (POC, slice type, fetch) of every plan the port submits."""
     calls = []
-    plan_frame = PT.inter_plan.plan_frame
+    plan_frame = PP.plan_frame
 
     def spy(*a, **kw):
         calls.append((a[2].poc, a[2].slice_type, kw.get("fetch", True)))
         return plan_frame(*a, **kw)
 
-    monkeypatch.setattr(PT.inter_plan, "plan_frame", spy)
+    monkeypatch.setattr(PP, "plan_frame", spy)
     return calls
 
 
