@@ -24,6 +24,14 @@ port's paths:
   fork's RRSP fast partitioning) over an IDR and two P pictures of 1080p
   through `encode_frame`;
 - the encoder CLI on its default device (HM's Low Delay P Main cfg);
+- the row-banded path (`hm16_2_tpu_torch/parallel/`) with its bands on this
+  one card: K1's and K5's band modes and K2's analysis mode against their
+  plain versions (1080p, and 1024x768, HM's class F size, over 2 and 4
+  bands with four references), the banded grids against the whole
+  picture's, two 1080p AI frames with the intra plan banded and a 1024x768
+  RA GOP 8 with both plans banded over 2 and 4 bands against the unbanded
+  bytes, and the port's scaling_bench (bands sharing one card: the
+  plumbing cost, not multi-GPU scaling);
 
 decodes the streams with the port's decoder and checks every picture hash,
 and checks small encodes on the card (AI, LDP, RA and the per-CU search's
@@ -37,6 +45,7 @@ CUDA device and exits non-zero without one.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -168,20 +177,27 @@ def _ops_rd(n, s, k):
     return n * (35 * 12 * s * s + k * (8 * s ** 3 + 16 * s * s))
 
 
-def _ops_me(R, h, w, shapes, comp_ops):
+def _ops_me(R, h, w, shapes, comp_ops, ref_h=None):
     """Downsample, coarse grid, pyramid, then per block and reference: the
     coarse argmin over 1089 offsets and the 98-candidate refinement.  The
     MV bits split by component, so they cost `comp_ops` for each of the
     2 x 33 coarse and 2 x 2 x 7 refinement components; each offset or
     candidate adds them, multiply-adds the lambda term and compares (a
-    rect shape also adds its two half cells)."""
+    rect shape also adds its two half cells).  A band of h rows downsamples
+    the whole ref_h-row references."""
     n = {s: (h // s) * (w // s) for s in (8, 16, 32, 64)}
-    ops = (R + 1) * h * w + R * 1089 * (12 * n[8] + 3 * (n[16] + n[32]
-                                                        + n[64]))
+    ops = (R * (ref_h or h) + h) * w + R * 1089 * (12 * n[8] + 3 * (
+        n[16] + n[32] + n[64]))
     for bh, bw, N in shapes:
         ops += R * N * ((2 * 33 + 4 * 7) * comp_ops
                         + 1089 * (4 + (bh != bw)) + 98 * (bh * bw * 3 + 4))
     return ops
+
+
+def _ops_analysis(n, s):
+    """35-mode prediction and SATD, the argmin, then the winner's forward
+    transform (two s x s matrix products) and quant."""
+    return n * (35 * 12 * s * s + 35 + 4 * s ** 3 + 8 * s * s)
 
 
 # operations of one MV component's bits: the plan's MVD bins (abs, two
@@ -503,6 +519,168 @@ def check_me_frame(frames, dev, reps=3, stats=None, nref=4):
     return stats
 
 
+def _kernel_split(label, fn, top=4):
+    """Run fn under torch.profiler (device activity) and print its device
+    time by kernel, the `top` largest."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in ev) / 1e3
+    print(f"device time of {label}: {total:.3f} ms; " + "; ".join(
+        f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+        for e in ev[:top]) + f"  [{CARD}]", flush=True)
+
+
+def _banding(H, s, n):
+    """The rows (H // s) * s of a picture, when the banding rule splits
+    them into n bands of whole s-blocks (frame_shard.sharded_plan_frame),
+    else 0."""
+    rows = (H // s) * s
+    return rows if rows and rows % (n * s) == 0 else 0
+
+
+def _equal(label, got, want):
+    """Banded against whole: every tensor equal, or raise."""
+    _compare(label, _flat(got), _flat(want))
+    print(f"banded {label}: equal to the whole picture's", flush=True)
+
+
+def check_band_kernels(frames, dev, reps=3, stats=None, bands=(2, 4),
+                       me=True, analysis=(4, 8, 16, 32)):
+    """K1's band mode, K5's band mode in both bit models and K2's analysis
+    mode against their plain versions at the shapes the row-banded path
+    gives them, n bands of the last of `frames` for n in `bands`, all on
+    `dev`: K1 for each size s whose rows the banding rule splits; K5 (when
+    `me`) against the four frames before it, QP 32, priors reaching +-70
+    full-pel across band edges; the analysis step on every aligned s-block
+    of the picture for s in `analysis`.  Then the banded programs against
+    the whole picture on the same card: sharded_size_rd where the bands
+    cover the picture, sharded_int_me, sharded_me_frame and
+    sharded_analysis_step.  Adds to `stats`."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import inter_me as M
+    from hm16_2_tpu_torch.encode import inter_plan as P
+    from hm16_2_tpu_torch.encode import intra_rd as R
+    from hm16_2_tpu_torch.parallel import frame_shard as F
+    from hm16_2_tpu_torch.parallel import me_shard as MS
+    from hm16_2_tpu_torch.parallel import mesh as MM
+    from hm16_2_tpu_torch.parallel import plan_shard as PS
+
+    H, W = frames[-1][0].shape
+    y = torch.from_numpy(frames[-1][0].astype("int32")).to(dev)
+    lam = 0.57 * 2.0 ** ((QP - 12) / 3.0)
+    stats = _new_stats(stats)
+    case = _case(stats, reps)
+    zeros = lambda rows: torch.zeros((rows, W), dtype=torch.int32, device=dev)
+
+    for n in bands:
+        mesh = F.make_row_mesh([dev] * n)
+        for s in (4, 8, 16, 32):
+            rows = _banding(H, s, n)
+            if not rows:
+                continue
+            B = rows // n
+            bands_ = [y[i * B:(i + 1) * B] for i in range(n)]
+            tops = [zeros(1)] + [b[-1:] for b in bands_[:-1]]
+            bots = [b[:s] for b in bands_[1:]] + [zeros(s)]
+            args = [(bands_[i], tops[i], bots[i], s, 8, True, i * B, H)
+                    for i in range(n)]
+            case("ref_buffers_band", f"{W}x{H} n={n} s={s}",
+                 lambda: [K.ref_buffers_band(*a) for a in args],
+                 lambda: [F._ref_buffers_band_plain(*a) for a in args],
+                 (y, tops, bots), (rows // s) * (W // s) * (4 * s + 1) * 8)
+            if rows == H:
+                k = R.NUM_RD_CANDS[s]
+                b, bl = K.ref_buffers(y, s, 8, True, H, W)
+                _equal(f"size_rd {W}x{H} n={n} s={s}",
+                       [g.reshape(-1) for g in F.sharded_size_rd(
+                           mesh, y, s, 8, k, QP, lam, True, H)],
+                       [g.reshape(-1) for g in K.intra_size_rd(
+                           b, bl, lam, s, 8, k, QP, True, s == 4, True)])
+
+    if me:
+        nref = 4
+        refs = torch.from_numpy(np.stack([frames[-1 - d][0] for d in range(
+            1, nref + 1)]).astype("int32")).to(dev)
+        rng = np.random.default_rng(17)
+        mvn16 = torch.from_numpy(rng.integers(-70 * 16, 70 * 16 + 1, (
+            H // 8, W // 8, 2)).astype("int32")).to(dev)
+        dists = torch.as_tensor([1, 2, -1, 4], dtype=torch.int32, device=dev)
+        mvp8 = torch.from_numpy(rng.integers(-70, 71, (
+            nref, H // 8, W // 8, 2)).astype("int32")).to(dev)
+        lams = float(np.float32(np.sqrt(0.578 * 2.0 ** ((QP - 12) / 3.0))))
+        lam_me = float(np.float32(np.sqrt(0.85 * 2.0 ** ((QP - 12) / 3.0))))
+        whole_ms = {
+            "inter_me": _cuda_ms(lambda: K.inter_me(
+                y, refs, P._mvp_full(mvn16, dists), lams, H, W, True), 1),
+            "me_frame": _cuda_ms(lambda: K.me_frame(y, refs, mvp8, lam_me, H,
+                                                    W), 1)}
+        print(f"whole-picture K5 at {W}x{H}, {nref} refs (beside the banded "
+              f"cases): MVD bins {whole_ms['inter_me']:.3f} ms, log model "
+              f"{whole_ms['me_frame']:.3f} ms  [{CARD}]", flush=True)
+        n = max(bands)
+        _kernel_split(f"K5 (MVD bins) on the whole {W}x{H} picture",
+                      lambda: K.inter_me(y, refs, P._mvp_full(mvn16, dists),
+                                         lams, H, W, True))
+        _kernel_split(f"K5 (MVD bins) on {n} bands of {W}x{H}",
+                      lambda: PS.sharded_int_me(F.make_row_mesh([dev] * n), y,
+                                                refs, mvn16, dists, lams, H,
+                                                W))
+        for n in bands:
+            if H % (n * 64):
+                continue
+            mesh = F.make_row_mesh([dev] * n)
+            B = H // n
+            band = [(y[i * B:(i + 1) * B], i * B, slice(i * B // 8,
+                                                        (i + 1) * B // 8))
+                    for i in range(n)]
+            pri = [P._mvp_full(mvn16[r8], dists) for _, _, r8 in band]
+            shapes = [(bh, bw, Ny * Nx) for _, _, bh, bw, Ny, Nx in
+                      P._shapes(B, W, True)]
+            case("inter_me_band", f"{W}x{H} n={n} {nref} refs, MVD bins",
+                 lambda: [K.inter_me(b, refs, p, lams, B, W, True, r0, H)
+                          for (b, r0, _), p in zip(band, pri)],
+                 lambda: [P._int_me_plain(b, refs, p, lams, B, W, True, r0)
+                          for (b, r0, _), p in zip(band, pri)],
+                 (y, refs, pri),
+                 n * _ops_me(nref, B, W, shapes, MVD_BIN_OPS, H), r=1)
+            pb = [mvp8[:, r8].contiguous() for _, _, r8 in band]
+            sq = [(s, s, (B // s) * (W // s)) for s in (8, 16, 32, 64)]
+            case("me_frame_band", f"{W}x{H} n={n} {nref} refs, log model",
+                 lambda: [K.me_frame(b, refs, p, lam_me, B, W, r0, H)
+                          for (b, r0, _), p in zip(band, pb)],
+                 lambda: [M._me_frame_plain(b, refs, p, lam_me, B, W, r0)
+                          for (b, r0, _), p in zip(band, pb)],
+                 (y, refs, mvp8), n * _ops_me(nref, B, W, sq, MV_LOG_OPS, H),
+                 r=1)
+            _equal(f"int_me {W}x{H} n={n}",
+                   PS.sharded_int_me(mesh, y, refs, mvn16, dists, lams, H, W),
+                   K.inter_me(y, refs, P._mvp_full(mvn16, dists), lams, H, W,
+                              True))
+            _equal(f"me_frame {W}x{H} n={n}",
+                   MS.sharded_me_frame(mesh, y, refs, mvp8, lam_me, H, W),
+                   K.me_frame(y, refs, mvp8, lam_me, H, W))
+
+    grid = MM.make_mesh([dev] * 4, 2)
+    for s in analysis:
+        bufs, blocks = K.ref_buffers(y, s, 8, True, H, W)
+        n = blocks.shape[0]
+        case("analysis_step", f"{W}x{H} s={s}",
+             lambda: K.analysis_step(blocks, bufs, QP, s, 8),
+             lambda: MM._analysis_step_plain(blocks, bufs, QP, s, 8),
+             (bufs, blocks), _ops_analysis(n, s))
+        q = n // 4 * 4
+        o = blocks[:q].reshape(2, 2, q // 4, s, s)
+        b = bufs[:q].reshape(2, 2, q // 4, 2, 4 * s + 1)
+        _equal(f"analysis_step {W}x{H} s={s} (frame 2, row 2)",
+               MM.sharded_analysis_step(grid, s, 8)(o, b, QP),
+               K.analysis_step(o, b, QP, s, 8))
+    return stats
+
+
 SOURCES = {
     "ref_buffers": ("ref_buffers.cu", "hm16_2_tpu/encode/intra_rd.py:317"),
     "intra_size_rd": ("intra_rd.cu", "hm16_2_tpu/encode/intra_rd.py:172"),
@@ -515,7 +693,14 @@ SOURCES = {
     "inter_cu_rd": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:444"),
     "inter_cu_rd_b": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:444"),
     "me_frame": ("inter_me.cu", "hm16_2_tpu/encode/inter_me.py:47"),
+    "ref_buffers_band": ("ref_buffers.cu",
+                         "hm16_2_tpu/parallel/frame_shard.py:39"),
+    "inter_me_band": ("inter_me.cu", "hm16_2_tpu/parallel/plan_shard.py:51"),
+    "me_frame_band": ("inter_me.cu", "hm16_2_tpu/parallel/me_shard.py:40"),
+    "analysis_step": ("intra_rd.cu", "hm16_2_tpu/parallel/mesh.py:32"),
 }
+BAND = ("ref_buffers_band", "inter_me_band", "me_frame_band",
+        "analysis_step")                          # kernels of parallel/ only
 B_ONLY = ("inter_bi_refine", "inter_cu_rd_b")     # kernels of B pictures only
 INTRA = ("ref_buffers", "intra_size_rd", "intra_cand_rd", "plan_dp")
 PLAN_ONLY = ("inter_me", "subpel_planes", "inter_uni", "inter_bi_refine",
@@ -630,7 +815,7 @@ def ldp_phase(frames, dev):
 
     aus, counts = _launches_of(K, run, f"LDP {W}x{H}",
                                [k for k in K.LAUNCHES
-                                if k not in B_ONLY + ("me_frame",)])
+                                if k not in B_ONLY + BAND + ("me_frame",)])
     _report(f"LDP {W}x{H} QP{QP} GOP4", len(frames) - 1, "P", out["idr"],
             out["wall"], out["stage"], aus)
     return aus, counts
@@ -665,8 +850,8 @@ def ra_phase(frames, dev):
         return aus + rest
 
     aus, counts = _launches_of(K, run, f"RA {W}x{H}",
-                               [k for k in K.LAUNCHES
-                                if k not in ("inter_cu_rd", "me_frame")])
+                               [k for k in K.LAUNCHES if k not in BAND + (
+                                   "inter_cu_rd", "me_frame")])
     _report(f"RA {W}x{H} QP{QP} GOP8", len(frames) - 1, "B", out["idr"],
             out["wall"], out["stage"], aus,
             f"; plans enqueued ahead for POCs {ahead}")
@@ -747,6 +932,119 @@ def small_checks(dev):
              lambda enc: _push_all(enc, small))
 
 
+@contextlib.contextmanager
+def _banded(mesh):
+    """Point the encoder's two plans at the row mesh for the block:
+    intra_rd.plan_frame becomes frame_shard.sharded_plan_frame, and
+    inter_plan.plan_frame takes the mesh (its integer ME banded where
+    plan_shard.shardable allows).  Yields a dict whose "inter" counts the
+    inter plans that took the banded ME."""
+    from hm16_2_tpu_torch.encode import inter_plan, intra_rd
+    from hm16_2_tpu_torch.parallel import plan_shard
+    from hm16_2_tpu_torch.parallel.frame_shard import sharded_plan_frame
+    saved = intra_rd.plan_frame, inter_plan.plan_frame, \
+        plan_shard.sharded_int_me
+    seen = {"inter": 0}
+
+    def int_me(*a):
+        seen["inter"] += 1
+        return saved[2](*a)
+
+    intra_rd.plan_frame = lambda orig, sps, qp, lam, cw, cqps, device=None: \
+        sharded_plan_frame(mesh, orig, sps, qp, lam, cw, cqps)
+    inter_plan.plan_frame = lambda *a, **kw: saved[1](*a, **dict(kw,
+                                                                mesh=mesh))
+    plan_shard.sharded_int_me = int_me
+    try:
+        yield seen
+    finally:
+        intra_rd.plan_frame, inter_plan.plan_frame, \
+            plan_shard.sharded_int_me = saved
+
+
+def banded_phase(frames, small, dev):
+    """The row-banded path on one card, bands on `dev`: two 1080p AI frames
+    through encode_frame with the intra plan banded over 2 bands, and a
+    1024x768 RA GOP 8 (IDR + 8 B) with both plans banded over 2 and over
+    4 bands, each against the same encode unbanded (equal bytes, every
+    picture hash_ok); sharded_analysis_step on a (2, 2) mesh; the port's
+    scaling_bench over 1, 2 and 4 bands on the card (the plumbing cost of
+    banding, not multi-GPU scaling).  Returns the launch counts of the
+    banded run."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
+    from hm16_2_tpu_torch.parallel import frame_shard as F
+    from hm16_2_tpu_torch.parallel import mesh as MM
+    from hm16_2_tpu_torch.tools import scaling_bench
+    H, W = frames[0][0].shape
+    h2, w2 = small[0][0].shape
+    ai_cfg = lambda: EncoderConfig(W, H, qp=QP, intra_period=1)
+    ra_cfg = lambda: EncoderConfig(w2, h2, qp=QP, intra_period=32, gop="ra8")
+    planes = [[p.astype("int32") for p in f] for f in frames[:2]]
+
+    def ai():
+        enc = Encoder(ai_cfg(), dev)
+        return [enc.encode_frame(planes[i], i) for i in range(2)]
+
+    whole, secs = {}, {}
+    for key, code in (("ai", ai), ("ra", lambda: _push_all(
+            Encoder(ra_cfg(), dev), small))):
+        t0 = time.perf_counter()
+        whole[key] = code()
+        torch.cuda.synchronize()
+        secs[f"whole {key}"] = time.perf_counter() - t0
+    out = {}
+
+    def run():
+        t1 = time.perf_counter()
+        with _banded(F.make_row_mesh([dev] * 2)):
+            out["ai"] = ai()
+        secs["ai"] = time.perf_counter() - t1
+        for n in (2, 4):
+            t1 = time.perf_counter()
+            with _banded(F.make_row_mesh([dev] * n)) as seen:
+                out[n] = _push_all(Encoder(ra_cfg(), dev), small)
+            out[f"inter{n}"] = seen["inter"]
+            secs[n] = time.perf_counter() - t1
+        orig, bufs = MM.example_batch(2, 2, 64, 16)
+        out["analysis"] = MM.sharded_analysis_step(
+            MM.make_mesh([dev] * 4, 2), 16, 8)(orig, bufs, QP)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = scaling_bench.main([
+                "--size", f"{w2}x{h2}", "-n", "3", "--Devices",
+                ",".join([f"{dev.type}:{dev.index or 0}"] * 4)])
+        if rc != 0:
+            raise AssertionError(f"scaling_bench exited {rc}")
+        out["bench"] = buf.getvalue().splitlines()
+
+    _, counts = _launches_of(
+        K, run, f"banded path {W}x{H} AI, {w2}x{h2} RA", BAND + INTRA + (
+            "subpel_planes", "inter_uni", "inter_bi_refine", "inter_cu_rd_b"))
+    if counts["inter_me"] or counts["inter_cu_rd"]:
+        raise AssertionError("the banded RA plans ran the whole-picture ME "
+                             "or a P kernel")
+    for line in out["bench"]:
+        print(f"scaling_bench {line}  [{CARD}]", flush=True)
+    if out["ai"] != whole["ai"]:
+        raise AssertionError("banded AI bytes differ from the unbanded")
+    for n in (2, 4):
+        if out[n] != whole["ra"]:
+            raise AssertionError(f"RA over {n} bands differs from unbanded")
+        if out[f"inter{n}"] != 8:
+            raise AssertionError(f"RA over {n} bands: {out[f'inter{n}']} "
+                                 "banded inter plans, not 8")
+    print(f"banded {W}x{H} AI (2 bands) bytes {[len(a) for a in out['ai']]} "
+          f"equal unbanded, {secs['ai']:.3f} s (unbanded "
+          f"{secs['whole ai']:.3f} s); {w2}x{h2} RA GOP8 over 2 and 4 bands "
+          f"equal unbanded, 8 banded B plans each, {secs[2]:.3f} / "
+          f"{secs[4]:.3f} s (unbanded {secs['whole ra']:.3f} s)  [{CARD}]",
+          flush=True)
+    _decode_check(out["ai"], 2, f"banded AI {W}x{H}")
+    _decode_check(out[2], 9, f"banded RA {w2}x{h2}")
+    return counts
+
+
 def cli_phase():
     """The encoder CLI on its default device (the card) with HM's Low Delay
     P Main cfg on a 136x72 YUV; its stream must decode.  Returns the launch
@@ -802,6 +1100,12 @@ def main():
     check_b_kernels(frames[:5], dev, stats=stats)
     check_me_frame(frames[1:6], dev, stats=stats)
     check_me_frame(frames[4:6], dev, stats=stats, nref=1)
+    # the row-banded kernels: K1's band mode at 1080p (the one size the
+    # banding rule splits there), K2's analysis mode on every 1080p block,
+    # K1's and K5's band modes at 1024x768 (HM class F) over 2 and 4 bands
+    check_band_kernels(frames[:1], dev, stats=stats, me=False)
+    xga = _frames(1024, 768, 9)
+    check_band_kernels(xga[:5], dev, stats=stats, analysis=())
 
     # all-intra: warm-up frame, then a timed 3-frame encode_stream
     from hm16_2_tpu_torch.encode.intra_rd import fetch_plan
@@ -846,7 +1150,16 @@ def main():
     _decode_check(fb_aus, 3, "per-CU search")
 
     small_checks(dev)
-    cli_phase()
+    cli_counts = cli_phase()
+    band_counts = banded_phase(frames, xga, dev)
+
+    old = {"AI": ai_counts, "LDP": ldp_counts, "RA": ra_counts,
+           "per-CU search": fb_counts, "CLI": cli_counts}
+    for label, c in old.items():
+        if any(c[k] for k in BAND):
+            raise AssertionError(f"{label} launched a band kernel: "
+                                 f"{[k for k in BAND if c[k]]}")
+    print("band kernels launched on the banded path only", flush=True)
 
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "hm16_2_tpu" or m.startswith("hm16_2_tpu.")]
@@ -857,7 +1170,7 @@ def main():
     print(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s  [{CARD}]",
           flush=True)
 
-    runs = (ai_counts, ldp_counts, ra_counts, fb_counts)
+    runs = (ai_counts, ldp_counts, ra_counts, fb_counts, band_counts)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"hm16_2_tpu_torch/csrc/{SOURCES[k][0]}",

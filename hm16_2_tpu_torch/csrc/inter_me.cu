@@ -17,6 +17,15 @@
 // the fly); the +-3 full-pel SSE refinement around the coarse winner and
 // around zero.
 //
+// Band mode, for both callers (`plan_shard.sharded_int_me`,
+// `me_shard.sharded_me_frame`, hm16_2_tpu/parallel/): the current picture is
+// one row band starting at picture row row0 (a multiple of 64), the
+// references are the whole pictures.  The coarse window reads the
+// downsampled reference at coarse row rc0 + y (rc0 = row0 / 4) and clamps at
+// its full height fhc; the refinement reads picture row row0 + y and clamps
+// at the full height.  With row0 = 0 and the full height equal to the
+// band's, the launches are the whole-picture ones.
+//
 // What bounds it: the coarse grid, 1089 offsets x 4 samples per 8x8 block
 // and reference (at 1080p with 4 references, 141M float32 = 564 MB written
 // and read back by the argmins), and the refinement's 98 candidate SSEs per
@@ -93,9 +102,10 @@ __global__ void me_down_kernel(const int* __restrict__ src, int P, int h,
   out[q] = sum >> 4;                 // non-negative: floor division by 16
 }
 
+// cd: (hc, wc) downsampled band; rd: (R, fhc, wc) downsampled references
 __global__ void me_coarse8_kernel(const int* __restrict__ cd,
                                   const int* __restrict__ rd, int R, int hc,
-                                  int wc, int n8y, int n8x,
+                                  int wc, int fhc, int rc0, int n8y, int n8x,
                                   float* __restrict__ g8) {
   long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long total = (long long)R * kNOff * n8y * n8x;
@@ -105,13 +115,14 @@ __global__ void me_coarse8_kernel(const int* __restrict__ cd,
   int r = q / ((long long)kNOff * n8y * n8x);
   int oy = o / (2 * kCoarseR + 1) - kCoarseR;
   int ox = o % (2 * kCoarseR + 1) - kCoarseR;
-  const int* ref = rd + (size_t)r * hc * wc;
+  const int* ref = rd + (size_t)r * fhc * wc;
   int sum = 0;
   for (int i = 0; i < 2; ++i)
     for (int j = 0; j < 2; ++j) {
       int cy = 2 * by + i, cx = 2 * bx + j;
       int d = cd[cy * wc + cx] -
-              ref[clampi(cy + oy, 0, hc - 1) * wc + clampi(cx + ox, 0, wc - 1)];
+              ref[clampi(rc0 + cy + oy, 0, fhc - 1) * wc +
+                  clampi(cx + ox, 0, wc - 1)];
       sum += d * d;
     }
   g8[q] = __int2float_rn(sum);
@@ -161,11 +172,13 @@ __global__ void me_argmin_kernel(const float* __restrict__ g, int gy, int gx,
 }
 
 // +-3 full-pel SSE refinement around the coarse winner and around zero;
-// one CTA per (block, reference): grid (N, R).  cost_out, when given,
-// receives the winner's cost beside its MV.
+// one CTA per (block, reference): grid (N, R).  cur: the band (w wide) whose
+// first row is picture row row0; refs: (R, rh, w) whole pictures.  cost_out,
+// when given, receives the winner's cost beside its MV.
 template <class Bits>
-__global__ void me_refine_kernel(const int* __restrict__ cur, int h, int w,
-                                 const int* __restrict__ refs, int bh, int bw,
+__global__ void me_refine_kernel(const int* __restrict__ cur, int w,
+                                 const int* __restrict__ refs, int row0,
+                                 int rh, int bh, int bw,
                                  int Nx, const int* __restrict__ coarse,
                                  const int* __restrict__ mvp, float lam,
                                  int* __restrict__ out,
@@ -178,7 +191,7 @@ __global__ void me_refine_kernel(const int* __restrict__ cur, int h, int w,
   size_t e = (size_t)r * N + n;
   int cy0 = coarse[e * 2], cx0 = coarse[e * 2 + 1];
   int by = (n / Nx) * bh, bx = (n % Nx) * bw;
-  const int* ref = refs + (size_t)r * h * w;
+  const int* ref = refs + (size_t)r * rh * w;
   int npx = bh * bw;                        // a multiple of 32: one
   bool shift = npx >= 4096;                 // candidate per warp pass
   int total = 2 * kNRef * npx;
@@ -187,7 +200,7 @@ __global__ void me_refine_kernel(const int* __restrict__ cur, int h, int w,
     int cc = cand / kNRef, k = cand % kNRef;
     int cy = cc == 0 ? cy0 : 0, cx = cc == 0 ? cx0 : 0;
     int y = by + pix / bw, x = bx + pix % bw;
-    int ry = clampi(y + cy + k / 7 - kRefineR, 0, h - 1);
+    int ry = clampi(row0 + y + cy + k / 7 - kRefineR, 0, rh - 1);
     int rx = clampi(x + cx + k % 7 - kRefineR, 0, w - 1);
     int d = cur[y * w + x] - ref[ry * w + rx];
     int sq = d * d;
@@ -233,13 +246,16 @@ extern "C" int hm_me_down(const int* src, int P, int h, int w, int hc, int wc,
   return (int)cudaGetLastError();
 }
 
+// fhc: the downsampled references' height; rc0: the band's first coarse row
 extern "C" int hm_me_coarse8(const int* cd, const int* rd, int R, int hc,
-                             int wc, int n8y, int n8x, float* g8,
-                             void* stream) {
-  if (R <= 0 || n8y <= 0 || n8x <= 0) return (int)cudaErrorInvalidValue;
+                             int wc, int fhc, int rc0, int n8y, int n8x,
+                             float* g8, void* stream) {
+  if (R <= 0 || n8y <= 0 || n8x <= 0 || rc0 < 0 || rc0 + hc > fhc)
+    return (int)cudaErrorInvalidValue;
   hm::me_coarse8_kernel<<<hm::blocks_of((long long)R * hm::kNOff * n8y * n8x),
                           256, 0, (cudaStream_t)stream>>>(cd, rd, R, hc, wc,
-                                                          n8y, n8x, g8);
+                                                          fhc, rc0, n8y, n8x,
+                                                          g8);
   return (int)cudaGetLastError();
 }
 
@@ -268,20 +284,21 @@ extern "C" int hm_me_argmin(const float* g, int gy, int gx, int mode, int R,
   return (int)cudaGetLastError();
 }
 
-// model as hm_me_argmin; cost may be null
-extern "C" int hm_me_refine(const int* cur, int h, int w, const int* refs,
-                            int R, int bh, int bw, int Ny, int Nx,
+// model as hm_me_argmin; cost may be null; cur: the band of rows row0.. of
+// the picture, refs: (R, rh, w) whole references
+extern "C" int hm_me_refine(const int* cur, int w, const int* refs, int row0,
+                            int rh, int R, int bh, int bw, int Ny, int Nx,
                             const int* coarse, const int* mvp, float lam,
                             int model, int* out, float* cost, void* stream) {
   if (R <= 0 || Ny <= 0 || Nx <= 0 || (bh * bw) % 32 != 0 || model < 0 ||
-      model > 1)
+      model > 1 || row0 < 0 || row0 + Ny * bh > rh)
     return (int)cudaErrorInvalidValue;
   dim3 grid(Ny * Nx, R);
   if (model == 0)
     hm::me_refine_kernel<hm::MvdBins><<<grid, 128, 0, (cudaStream_t)stream>>>(
-        cur, h, w, refs, bh, bw, Nx, coarse, mvp, lam, out, cost);
+        cur, w, refs, row0, rh, bh, bw, Nx, coarse, mvp, lam, out, cost);
   else
     hm::me_refine_kernel<hm::MvLog><<<grid, 128, 0, (cudaStream_t)stream>>>(
-        cur, h, w, refs, bh, bw, Nx, coarse, mvp, lam, out, cost);
+        cur, w, refs, row0, rh, bh, bw, Nx, coarse, mvp, lam, out, cost);
   return (int)cudaGetLastError();
 }

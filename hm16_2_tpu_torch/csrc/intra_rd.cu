@@ -7,7 +7,13 @@
 // `batched_inv_transform` (:66), `_bits_estimate` (:108) and
 // `_topk_argmin` (:159); K3 replaces `_chroma_rd5` (:212) and
 // `_size_rd_fixed_mode` (:232).  SATD-only mode (k = 0) serves
-// `CtuSearch._premodes` (encode/top.py:3938).
+// `CtuSearch._premodes` (encode/top.py:3938).  Analysis mode
+// (`hm_analysis_step`) replaces `mesh.analysis_step`
+// (hm16_2_tpu/parallel/mesh.py:32): the SATD argmin mode (int32, ties to the
+// lowest mode), its SATD, the quantised levels of orig - prediction (DST at
+// s = 4, the intra offset), and the SATDs summed into one int32 total with
+// one atomic add per CTA (integer, so exact in any order).  It shares the
+// SATD loop with K2 and the prediction and transform with intra_common.cuh.
 //
 // What bounds it: integer ALU work.  Per block the 35 predictions and
 // their Hadamard SATDs cost ~35 * 3 * s^2 operations and each of the k
@@ -31,27 +37,17 @@ namespace hm {
 
 template <int S> struct Group { static constexpr int G = 256 / (S * S) > 0 ? 256 / (S * S) : 1; };
 
+// SATD of each of the 35 predictions of the CTA's G loaded blocks, added
+// into satd[g][mode] (zeroed by the caller); ends synchronised
 template <int S, int G>
-__global__ void __launch_bounds__(kThreads)
-size_rd_kernel(const int* __restrict__ bufs, const int* __restrict__ blocks,
-               int n, TqParams p, const int* __restrict__ tm,
-               const int* __restrict__ ang, const float* __restrict__ model,
-               float lam, int k, int want_satd, int* __restrict__ out_mode,
-               float* __restrict__ out_cost, int* __restrict__ out_top3,
-               int* __restrict__ out_satd) {
+__device__ void satd_modes(BlockSmem<S, G>& sm, const TqParams& p,
+                           int (&satd)[G][35]) {
   constexpr int SS = S * S;
   constexpr int T = S % 8 == 0 ? 8 : 4;     // Hadamard tile
   constexpr int NT = (S / T) * (S / T);     // tiles per block
-  __shared__ BlockSmem<S, G> sm;
-  __shared__ int satd[G][35];
   __shared__ int tile[G][NT];
-  __shared__ int top[G][4];
-  __shared__ float cost[G][4];
-  const int n0 = blockIdx.x * G;
-  for (int q = threadIdx.x; q < G * 35; q += blockDim.x) satd[q / 35][q % 35] = 0;
   for (int q = threadIdx.x; q < G * NT; q += blockDim.x) tile[q / NT][q % NT] = 0;
-  load_blocks<S, G>(sm, bufs, blocks, n0, n, tm, ang);
-
+  __syncthreads();
   for (int mode = 0; mode < 35; ++mode) {
     for (int q = threadIdx.x; q < G * SS; q += blockDim.x) {
       int g = q / SS, yx = q % SS;
@@ -101,6 +97,24 @@ size_rd_kernel(const int* __restrict__ bufs, const int* __restrict__ blocks,
     }
   }
   __syncthreads();
+}
+
+template <int S, int G>
+__global__ void __launch_bounds__(kThreads)
+size_rd_kernel(const int* __restrict__ bufs, const int* __restrict__ blocks,
+               int n, TqParams p, const int* __restrict__ tm,
+               const int* __restrict__ ang, const float* __restrict__ model,
+               float lam, int k, int want_satd, int* __restrict__ out_mode,
+               float* __restrict__ out_cost, int* __restrict__ out_top3,
+               int* __restrict__ out_satd) {
+  __shared__ BlockSmem<S, G> sm;
+  __shared__ int satd[G][35];
+  __shared__ int top[G][4];
+  __shared__ float cost[G][4];
+  const int n0 = blockIdx.x * G;
+  for (int q = threadIdx.x; q < G * 35; q += blockDim.x) satd[q / 35][q % 35] = 0;
+  load_blocks<S, G>(sm, bufs, blocks, n0, n, tm, ang);
+  satd_modes<S, G>(sm, p, satd);
 
   if (want_satd)
     for (int q = threadIdx.x; q < G * 35; q += blockDim.x)
@@ -186,6 +200,55 @@ cand_rd_kernel(const int* __restrict__ bufs, const int* __restrict__ blocks,
   }
 }
 
+// analysis mode: per block the SATD argmin mode, its SATD and the levels of
+// its residual; the SATDs summed into *total
+template <int S, int G>
+__global__ void __launch_bounds__(kThreads)
+analysis_kernel(const int* __restrict__ bufs, const int* __restrict__ blocks,
+                int n, TqParams p, const int* __restrict__ tm,
+                const int* __restrict__ ang, int* __restrict__ out_best,
+                int* __restrict__ out_cost, int* __restrict__ out_levels,
+                int* __restrict__ total) {
+  constexpr int SS = S * S;
+  __shared__ BlockSmem<S, G> sm;
+  __shared__ int satd[G][35];
+  __shared__ int best[G];
+  const int n0 = blockIdx.x * G;
+  for (int q = threadIdx.x; q < G * 35; q += blockDim.x) satd[q / 35][q % 35] = 0;
+  load_blocks<S, G>(sm, bufs, blocks, n0, n, tm, ang);
+  satd_modes<S, G>(sm, p, satd);
+  if ((int)threadIdx.x < G) {  // integer argmin, ties to the lowest mode
+    int g = threadIdx.x, b = 0;
+    for (int m = 1; m < 35; ++m) if (satd[g][m] < satd[g][b]) b = m;
+    best[g] = b;
+    if (n0 + g < n) {
+      out_best[n0 + g] = b;
+      out_cost[n0 + g] = satd[g][b];
+    }
+  }
+  __syncthreads();
+  // residual orig - prediction, forward transform and quant: the levels are
+  // left in sm.wa
+  candidate_chain<S, G>(sm, p, [&](int g) { return best[g]; });
+  for (int q = threadIdx.x; q < G * SS; q += blockDim.x)
+    if (n0 + q / SS < n) out_levels[(size_t)n0 * SS + q] = sm.wa[q / SS][q % SS];
+  if (threadIdx.x == 0) {      // int32 wrap-around, as the reference's sum
+    unsigned sum = 0;
+    for (int g = 0; g < G && n0 + g < n; ++g) sum += (unsigned)satd[g][best[g]];
+    atomicAdd((unsigned*)total, sum);
+  }
+}
+
+template <int S>
+static void launch_analysis(const int* bufs, const int* blocks, int n,
+                            const TqParams& p, const int* tm, const int* ang,
+                            int* best, int* cost, int* levels, int* total,
+                            cudaStream_t st) {
+  constexpr int G = Group<S>::G;
+  analysis_kernel<S, G><<<(n + G - 1) / G, kThreads, 0, st>>>(
+      bufs, blocks, n, p, tm, ang, best, cost, levels, total);
+}
+
 template <int S>
 static void launch_size_rd(const int* bufs, const int* blocks, int n,
                            const TqParams& p, const int* tm, const int* ang,
@@ -242,6 +305,23 @@ extern "C" int hm_intra_cand_rd(const int* bufs, const int* blocks,
     case 8: hm::launch_cand_rd<8>(bufs, blocks, modes, n, K, *p, tm, ang, model, out_dist, out_bits, st); break;
     case 16: hm::launch_cand_rd<16>(bufs, blocks, modes, n, K, *p, tm, ang, model, out_dist, out_bits, st); break;
     case 32: hm::launch_cand_rd<32>(bufs, blocks, modes, n, K, *p, tm, ang, model, out_dist, out_bits, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// total: one int32, zeroed by the caller
+extern "C" int hm_analysis_step(const int* bufs, const int* blocks, int n,
+                                const hm::TqParams* p, const int* tm,
+                                const int* ang, int* best, int* cost,
+                                int* levels, int* total, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  switch (p->s) {
+    case 4: hm::launch_analysis<4>(bufs, blocks, n, *p, tm, ang, best, cost, levels, total, st); break;
+    case 8: hm::launch_analysis<8>(bufs, blocks, n, *p, tm, ang, best, cost, levels, total, st); break;
+    case 16: hm::launch_analysis<16>(bufs, blocks, n, *p, tm, ang, best, cost, levels, total, st); break;
+    case 32: hm::launch_analysis<32>(bufs, blocks, n, *p, tm, ang, best, cost, levels, total, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -81,8 +81,8 @@ def _mv_bits(d):
                   torch.ones_like(x))
 
 
-def _me_frame_plain(cur, refs, mvp8, lam, h, w):
-    grids = {8: _coarse_grid8(cur, refs, h, w)}
+def _me_frame_plain(cur, refs, mvp8, lam, h, w, row0=0):
+    grids = {8: _coarse_grid8(cur, refs, h, w, row0)}
     for s in (16, 32, 64):
         grids[s] = _quad4(grids[s // 2], h // s, w // s)
     R = refs.shape[0]
@@ -93,21 +93,29 @@ def _me_frame_plain(cur, refs, mvp8, lam, h, w):
             continue
         mvp = mvp8[:, ::s // 8, ::s // 8][:, :ny, :nx]
         mv, cost = _me_shape_plain(cur, refs, grids[s].contiguous(), mvp, lam,
-                                   s, s, comp_bits=_mv_bits)
+                                   s, s, comp_bits=_mv_bits, row0=row0)
         out[s] = (mv.reshape(R, ny * nx, 2), cost)
     return out
 
 
-def me_frame(cur, refs, mvp8, lam: float, h: int, w: int):
+def me_frame(cur, refs, mvp8, lam: float, h: int, w: int, row0: int = 0,
+             full_h: int | None = None):
     """Dense ME for all aligned blocks of sizes 8/16/32/64 (K5, log bit
-    model).  cur: (h, w) int32; refs: (R, h, w) int32; mvp8: (R, h/8, w/8,
-    2) int32 full-pel per-8x8-block prior; lam: the sqrt-domain lambda of
-    the MV-bits term (rounded to float32).  Returns {size: (mv (R, N, 2)
-    int32 full-pel (dy, dx), cost (R, N) float32)}, blocks in raster order,
-    sizes that fit only."""
+    model).  cur: (h, w) int32; refs: (R, full_h, w) int32; mvp8: (R, h/8,
+    w/8, 2) int32 full-pel per-8x8-block prior; lam: the sqrt-domain lambda
+    of the MV-bits term (rounded to float32).  Band mode (K5's
+    `me_frame_band`): cur and mvp8 are the band of rows row0.. of a
+    full_h-row picture, refs the whole references, whose full height the
+    edge clamps and the coarse window use (full_h defaults to h).  Returns
+    {size: (mv (R, N, 2) int32 full-pel (dy, dx), cost (R, N) float32)},
+    blocks in raster order, sizes that fit only."""
+    full_h = h if full_h is None else full_h
+    if tuple(refs.shape[1:]) != (full_h, w):
+        raise ValueError(f"me_frame: references {tuple(refs.shape)} are not "
+                         f"{full_h}x{w}")
     if _on_cuda(cur):
-        return kernels.me_frame(cur, refs, mvp8, lam, h, w)
-    return _me_frame_plain(cur, refs, mvp8, lam, h, w)
+        return kernels.me_frame(cur, refs, mvp8, lam, h, w, row0, full_h)
+    return _me_frame_plain(cur, refs, mvp8, lam, h, w, row0)
 
 
 class MePlan:
@@ -134,11 +142,11 @@ class MePlan:
         return (int(mv[i, 1]), int(mv[i, 0]))
 
 
-def submit_me(cur_y, ref_lists, prev_mv8, lam_sqrt, h, w, device):
-    """Enqueue me_frame on `device` for every reference of both lists
-    (deduplicated by identity), and on CUDA the copy of its results into
-    pinned host memory; returns a callable that waits for them and builds
-    the MePlan."""
+def _me_inputs(cur_y, ref_lists, prev_mv8, h, w, device):
+    """The frame ME's inputs on `device`: the (lx, r_idx) -> unique index
+    map of both lists' references (deduplicated by identity), then cur
+    (h, w), refs (R, h, w) and the prior mvp8 (R, h/8, w/8, 2) broadcast to
+    every reference; the tensors are None when no list has a reference."""
     uniq = []                      # deduplicated reference planes
     keymap = {}                    # (lx, r_idx) -> index into uniq
     for lx, refs in enumerate(ref_lists):
@@ -152,7 +160,7 @@ def submit_me(cur_y, ref_lists, prev_mv8, lam_sqrt, h, w, device):
                 keymap[(lx, r_idx)] = len(uniq)
                 uniq.append((key, ref.rec[0]))
     if not uniq:
-        return lambda: MePlan(h, w)
+        return keymap, None, None, None
     R = len(uniq)
     refs = torch.stack([_device_ref(p, h, w, device) for _, p in uniq])
     cur = _to_device(cur_y[:h, :w], device)
@@ -162,9 +170,15 @@ def submit_me(cur_y, ref_lists, prev_mv8, lam_sqrt, h, w, device):
     else:
         mvp8 = _to_device(prev_mv8, device)[None] \
             .expand(R, h // 8, w // 8, 2).contiguous()
-    res = me_frame(cur, refs, mvp8, float(np.float32(lam_sqrt)), h, w)
+    return keymap, cur, refs, mvp8
+
+
+def _me_fetcher(res, keymap, h, w, dev):
+    """Enqueue the copy of me_frame's results on `dev` into pinned host
+    memory (on CUDA, on the current stream, an event after it); returns a
+    callable that waits for them and builds the MePlan."""
     event = None
-    if cur.device.type == "cuda":
+    if dev.type == "cuda":
         host = {}
         for s, (mv, cost) in res.items():
             host[s] = tuple(torch.empty(t.shape, dtype=t.dtype,
@@ -187,3 +201,16 @@ def submit_me(cur_y, ref_lists, prev_mv8, lam_sqrt, h, w, device):
         return plan
 
     return fetch
+
+
+def submit_me(cur_y, ref_lists, prev_mv8, lam_sqrt, h, w, device):
+    """Enqueue me_frame on `device` for every reference of both lists
+    (deduplicated by identity), and on CUDA the copy of its results into
+    pinned host memory; returns a callable that waits for them and builds
+    the MePlan."""
+    keymap, cur, refs, mvp8 = _me_inputs(cur_y, ref_lists, prev_mv8, h, w,
+                                         device)
+    if cur is None:
+        return lambda: MePlan(h, w)
+    res = me_frame(cur, refs, mvp8, float(np.float32(lam_sqrt)), h, w)
+    return _me_fetcher(res, keymap, h, w, cur.device)

@@ -160,19 +160,24 @@ def _mvp_full(mvn16, dists):
 # K5: dense integer ME (plain version)
 # ---------------------------------------------------------------------------
 
-def _coarse_grid8(cur, refs, h, w):
+def _coarse_grid8(cur, refs, h, w, row0=0):
     """(R, 1089, h/8, w/8) float32 coarse SSD of every 8x8 block (2x2
-    samples of the 4x box-downsampled planes) at each of 33x33 offsets."""
+    samples of the 4x box-downsampled planes) at each of 33x33 offsets.
+    cur: (h, w), the rows row0.. of the picture (a band when row0 > 0 or
+    refs are taller); refs: (R, full_h, w) whole references."""
     R = refs.shape[0]
     hc, wc = h // 4, w // 4
+    fhc = refs.shape[1] // 4
     n8y, n8x = h // 8, w // 8
     dev = cur.device
     cd = cur[:hc * 4, :wc * 4].reshape(hc, 4, wc, 4) \
         .sum((1, 3), dtype=torch.int32) // 16
-    rd = refs[:, :hc * 4, :wc * 4].reshape(R, hc, 4, wc, 4) \
+    rd = refs[:, :fhc * 4, :wc * 4].reshape(R, fhc, 4, wc, 4) \
         .sum((2, 4), dtype=torch.int32) // 16
     cr = COARSE_R
-    iy = torch.clamp(torch.arange(-cr, hc + cr, device=dev), 0, hc - 1)
+    rc0 = row0 // 4
+    iy = torch.clamp(torch.arange(rc0 - cr, rc0 + hc + cr, device=dev), 0,
+                     fhc - 1)
     ix = torch.clamp(torch.arange(-cr, wc + cr, device=dev), 0, wc - 1)
     rdp = rd[:, iy][:, :, ix]
     n = 2 * cr + 1
@@ -194,11 +199,12 @@ def _quad4(p, ny, nx):
 
 
 def _me_shape_plain(cur, refs, grid, mvp, lamf, bh, bw,
-                    comp_bits=_mvd_comp_bits):
+                    comp_bits=_mvd_comp_bits, row0=0):
     """Best full-pel MV (R, Ny, Nx, 2) of one block shape from its coarse
     grid (R, 1089, Ny, Nx) and its per-reference prior (R, Ny, Nx, 2), and
     its cost (R, Ny*Nx) float32.  comp_bits: the bits of one MV delta
-    component (the plan's MVD bins; inter_me's log model)."""
+    component (the plan's MVD bins; inter_me's log model); row0: the
+    picture row of cur's first row (refs are the whole pictures)."""
     R, O, Ny, Nx = grid.shape
     N = Ny * Nx
     dev = cur.device
@@ -216,6 +222,7 @@ def _me_shape_plain(cur, refs, grid, mvp, lamf, bh, bw,
     coarse = 4 * offs[best_o]                              # (R, N, 2)
     ys, xs = _grid_origins(bh, bw, Ny, Nx, dev)
     blocks = _grid_blocks(cur, bh, bw, Ny, Nx)
+    ys = ys + row0
     rr = REFINE_R
     out = torch.empty((R, N, 2), dtype=torch.int32, device=dev)
     out_cost = torch.empty((R, N), dtype=torch.float32, device=dev)
@@ -274,9 +281,8 @@ def _shapes(h, w, parts):
     return out
 
 
-def _int_me_plain(cur, refs, mvp8, lamf, h, w, parts):
-    R = refs.shape[0]
-    grids = {8: _coarse_grid8(cur, refs, h, w)}
+def _int_me_plain(cur, refs, mvp8, lamf, h, w, parts, row0=0):
+    grids = {8: _coarse_grid8(cur, refs, h, w, row0)}
     for s in (16, 32, 64):
         grids[s] = _quad4(grids[s // 2], h // s, w // s)
     out = {}
@@ -289,19 +295,28 @@ def _int_me_plain(cur, refs, mvp8, lamf, h, w, parts):
                 half[:, :, 0::2] + half[:, :, 1::2]
         mvp = _me_mvp(mvp8, s, part)[:, :Ny, :Nx]
         out[(s, part)] = _me_shape_plain(cur, refs, g.contiguous(), mvp,
-                                         lamf, bh, bw)[0]
+                                         lamf, bh, bw, row0=row0)[0]
     return out
 
 
-def int_me(cur, refs, mvp8, lams: float, h: int, w: int, parts: bool):
+def int_me(cur, refs, mvp8, lams: float, h: int, w: int, parts: bool,
+           row0: int = 0, full_h: int | None = None):
     """Best full-pel MV (R, Ny, Nx, 2) int32 (dy, dx) per reference and
     block for every CU shape of `_shapes`, keyed (s, part) (K5); MVD bins
     are priced at lams, the square root of the frame lambda.
-    cur: (h, w) int32; refs: (R, h, w) int32; mvp8: (R, h/8, w/8, 2)
-    int32 per-reference full-pel prior."""
+    cur: (h, w) int32; refs: (R, full_h, w) int32; mvp8: (R, h/8, w/8, 2)
+    int32 per-reference full-pel prior.  Band mode (K5's `inter_me_band`):
+    cur is the band of rows row0.. (a multiple of 4; of 64 for grids equal
+    to the whole picture's) of a full_h-row picture, refs are the whole
+    references (full_h defaults to h)."""
+    full_h = h if full_h is None else full_h
+    if tuple(refs.shape[1:]) != (full_h, w):
+        raise ValueError(f"int_me: references {tuple(refs.shape)} are not "
+                         f"{full_h}x{w}")
     if _on_cuda(cur):
-        return kernels.inter_me(cur, refs, mvp8, lams, h, w, parts)
-    return _int_me_plain(cur, refs, mvp8, lams, h, w, parts)
+        return kernels.inter_me(cur, refs, mvp8, lams, h, w, parts, row0,
+                                full_h)
+    return _int_me_plain(cur, refs, mvp8, lams, h, w, parts, row0)
 
 
 # ---------------------------------------------------------------------------
@@ -972,19 +987,22 @@ def emit(recs, costs, lamf: float, h: int, w: int):
 # ---------------------------------------------------------------------------
 
 def _plan_device(cur, refs, mvn16, dists, lam, lam_sqrt, qp, map0, nref0,
-                 map1=None, nref1=0, *, h: int, w: int, bd: int, nmerge: int,
-                 is_b: bool = False, parts: bool = True):
+                 map1=None, nref1=0, me=None, *, h: int, w: int, bd: int,
+                 nmerge: int, is_b: bool = False, parts: bool = True):
     """The whole P- or B-picture plan on the planes' device.  cur: (h, w)
     int32; refs: (R, h, w) int32, the live unique references; mvn16:
     (h/8, w/8, 2) int32 POC-normalised prior; dists: (R,) int32 signed POC
     distance cur - ref (negative for a future reference, so the prior
     flips); map0 / map1: (MAXREF_PLAN,) int32 list indices into refs,
-    nref0 / nref1 live (list 1 only when is_b).  Returns the packed
-    (24, h/4, w/4) int16 plan."""
+    nref0 / nref1 live (list 1 only when is_b); me: int_me's grids computed
+    elsewhere (the row-banded `parallel.plan_shard.sharded_int_me`, equal
+    to int_me's), on the planes' device, or None to run int_me here.
+    Returns the packed (24, h/4, w/4) int16 plan."""
     lamf = float(np.float32(lam))
     lams = float(np.float32(lam_sqrt))
     mvp8 = _mvp_full(mvn16, dists)
-    mv_int = int_me(cur, refs, mvp8, lams, h, w, parts)
+    mv_int = me if me is not None else \
+        int_me(cur, refs, mvp8, lams, h, w, parts)
     sub = subpel_planes(refs, bd, h, w)
     lists = [(map0, nref0), (map1, nref1)] if is_b else [(map0, nref0)]
     first = [int(m[0]) for m, _ in lists]
@@ -1178,10 +1196,13 @@ def _plan_inputs(sps, sh, rc):
 
 
 def submit_plan(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt,
-                device: torch.device):
+                device: torch.device, mesh=None):
     """Enqueue the P- or B-picture plan on `device` without waiting for it:
     the kernels and the copy of the packed plan into pinned host memory are
-    queued on the current stream.  Returns None when the slice has no
+    queued on the current stream.  With a row mesh (`parallel.frame_shard.
+    make_row_mesh`) whose bands the geometry allows
+    (`parallel.plan_shard.shardable`), the integer ME runs row-banded over
+    it and the plan takes its grids.  Returns None when the slice has no
     reference."""
     h, w = sps.pic_height, sps.pic_width
     planes, maps, nrefs, dists, weighted = _plan_inputs(sps, sh, rc)
@@ -1194,11 +1215,19 @@ def submit_plan(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt,
                         else _device_ref(p, h, w, device) for p in planes])
     lmaps = [torch.as_tensor(m, dtype=torch.int32, device=device)
              for m in maps]
+    cur = _to_device(orig_y[:h, :w], device)
+    mvn16 = _to_device(mvn16, device)
+    dists = torch.as_tensor(dists, dtype=torch.int32, device=device)
+    me = None
+    if mesh is not None:
+        from hm16_2_tpu_torch.parallel import plan_shard
+        if plan_shard.shardable(mesh, h, w, parts):
+            me = {k: g.to(device) for k, g in plan_shard.sharded_int_me(
+                mesh, cur, refs, mvn16, dists, lam_sqrt, h, w).items()}
     packed = _plan_device(
-        _to_device(orig_y[:h, :w], device), refs, _to_device(mvn16, device),
-        torch.as_tensor(dists, dtype=torch.int32, device=device), lam,
-        lam_sqrt, sh.qp + 6 * (sps.bit_depth_luma - 8), lmaps[0], nrefs[0],
-        lmaps[1], nrefs[1], h=h, w=w, bd=sps.bit_depth_luma,
+        cur, refs, mvn16, dists, lam, lam_sqrt,
+        sh.qp + 6 * (sps.bit_depth_luma - 8), lmaps[0], nrefs[0], lmaps[1],
+        nrefs[1], me, h=h, w=w, bd=sps.bit_depth_luma,
         nmerge=sh.max_num_merge_cand, is_b=sh.slice_type == B_SLICE,
         parts=parts)
     if packed.device.type != "cuda":
@@ -1211,11 +1240,13 @@ def submit_plan(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt,
 
 
 def plan_frame(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt,
-               device: torch.device, fetch: bool = True):
+               device: torch.device, mesh=None, fetch: bool = True):
     """Plan one P or B picture.  rc: mvpred.RefCtx with the frame's
-    reference lists.  fetch=True waits and returns the InterPlan; fetch=False returns
-    a function that does.  None when the slice has no reference."""
-    fut = submit_plan(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt, device)
+    reference lists; mesh: a row mesh for the banded integer ME (see
+    submit_plan).  fetch=True waits and returns the InterPlan; fetch=False
+    returns a function that does.  None when the slice has no reference."""
+    fut = submit_plan(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt, device,
+                      mesh)
     if fut is None:
         return None
     h, w = sps.pic_height, sps.pic_width

@@ -257,8 +257,17 @@ def _ref_buffers_plain(plane, s, bd, strong, h, w):
     lrng = torch.arange(-1, 2 * s, device=dev)
     lefts = plane[torch.clamp(y0s[:, None] + lrng[None, :], 0, ph - 1),
                   torch.clamp(x0s - 1, min=0)[:, None]]
-    lefts[:, 0] = tops[:, 0]
-    n = nby * nbx
+    blocks = plane[:nby * s, :nbx * s].reshape(nby, s, nbx, s) \
+        .transpose(1, 2).reshape(nby * nbx, s, s).to(torch.int32)
+    return _pack_buffers(tops, lefts, s, bd, strong), blocks
+
+
+def _pack_buffers(tops, lefts, s, bd, strong):
+    """(N, 2, 4s+1) [unfiltered, filtered] buffers from the (N, 2s+1)
+    top row (corner first) and left column (top-down, its first entry
+    unused: the corner comes from the top row), with the [1 2 1] filter and
+    at s = 32 the strong smoothing."""
+    dev = tops.device
     tops = tops.to(torch.int32)
     lefts = lefts.to(torch.int32)
     buf_u = torch.cat([lefts[:, 1:].flip(1), tops[:, :1], tops[:, 1:]], 1)
@@ -280,9 +289,7 @@ def _ref_buffers_plain(plane, s, bd, strong, h, w):
         sb[:, 2 * s + 1: 4 * s] = top_bl
         sb[:, 1: 2 * s] = left_bl.flip(1)
         buf_f = torch.where(use[:, None], sb, buf_f)
-    blocks = plane[:nby * s, :nbx * s].reshape(nby, s, nbx, s) \
-        .transpose(1, 2).reshape(n, s, s).to(torch.int32)
-    return torch.stack([buf_u, buf_f], 1), blocks
+    return torch.stack([buf_u, buf_f], 1)
 
 
 # ---------------------------------------------------------------------------
@@ -539,19 +546,22 @@ def plan_dp(lam: float, h: int, w: int, mode_s, cost_s, cand_s, cmode_s,
                           chroma_add32, d64, b64, mode64_g)
 
 
-def _plan_device(y, cb, cr, lam, cweight, *, h: int, w: int, bd: int,
-                 cbd: int, strong: bool, qp: int, cqp0: int, cqp1: int,
-                 chroma: bool):
+def _plan_device(y, cb, cr, lam, cweight, stage1=None, *, h: int, w: int,
+                 bd: int, cbd: int, strong: bool, qp: int, cqp0: int,
+                 cqp1: int, chroma: bool):
     """The whole frame plan on the planes' device: per-size candidate RD,
     chroma mode RD, the 64x64 level, the quadtree DP and the packed plan.
-    Every branch depends on shapes and options only, never on device
-    values, so nothing here waits for the device."""
+    stage1: the per-size (mode, cost, top3, satd) grids of sizes 4..32
+    computed elsewhere (the row-banded `parallel.frame_shard`), on the
+    planes' device, in place of K1 + K2 here.  Every branch depends on
+    shapes and options only, never on device values, so nothing here waits
+    for the device."""
     dev = y.device
     sizes = (4, 8, 16, 32)
     mode_s, cost_s, cand_s = {}, {}, {}
     satd32 = None
     shape_s = {s: (h // s, w // s) for s in (4, 8, 16, 32, 64)}
-    for s in sizes:
+    for i, s in enumerate(sizes):
         nby, nbx = shape_s[s]
         if nby == 0 or nbx == 0:
             mode_s[s] = torch.zeros((nby, nbx), dtype=torch.int32,
@@ -561,9 +571,12 @@ def _plan_device(y, cb, cr, lam, cweight, *, h: int, w: int, bd: int,
             cand_s[s] = torch.zeros((nby, nbx, 3), dtype=torch.int32,
                                     device=dev)
             continue
-        bufs, blocks = ref_buffers(y, s, bd, strong, h, w)
-        m, c, c3, sa = size_rd(bufs, blocks, lam, s, bd, NUM_RD_CANDS[s],
-                               qp, True, s == 4, s == 32)
+        if stage1 is not None:
+            m, c, c3, sa = stage1[i]
+        else:
+            bufs, blocks = ref_buffers(y, s, bd, strong, h, w)
+            m, c, c3, sa = size_rd(bufs, blocks, lam, s, bd, NUM_RD_CANDS[s],
+                                   qp, True, s == 4, s == 32)
         mode_s[s] = m.reshape(nby, nbx)
         cost_s[s] = c.reshape(nby, nbx)
         cand_s[s] = c3.reshape(nby, nbx, 3)
@@ -636,11 +649,12 @@ class PlanFuture:
 
 
 def submit_plan(orig, sps, qp, lam, chroma_weight, chroma_qps,
-                device: torch.device) -> PlanFuture:
+                device: torch.device, stage1=None) -> PlanFuture:
     """Enqueue the frame plan on `device` without waiting for it: the
     kernels and the copy of the packed plan into pinned host memory are
     queued on the current stream, so the card plans this frame while the
-    host commits the previous one."""
+    host commits the previous one.  stage1: optional per-size (mode, cost,
+    top3, satd) grids on `device` (see _plan_device)."""
     bd = sps.bit_depth_luma
     strong = bool(sps.strong_intra_smoothing)
     h, w = sps.pic_height, sps.pic_width
@@ -657,7 +671,7 @@ def submit_plan(orig, sps, qp, lam, chroma_weight, chroma_qps,
         cbp = crp = torch.zeros((1, 1), dtype=torch.int32, device=device)
     packed = _plan_device(
         y, cbp, crp, float(np.float32(lam)),
-        float(np.float32(chroma_weight)), h=h, w=w, bd=bd,
+        float(np.float32(chroma_weight)), stage1, h=h, w=w, bd=bd,
         cbd=sps.bit_depth_chroma, strong=strong, qp=int(qp),
         cqp0=int(chroma_qps[0]), cqp1=int(chroma_qps[1]), chroma=chroma)
     if packed.device.type != "cuda":
@@ -687,9 +701,12 @@ def fetch_plan(fut: PlanFuture, h, w):
 
 
 def plan_frame(orig, sps, qp, lam, chroma_weight, chroma_qps,
-               device: torch.device):
+               device: torch.device, stage1=None):
     """Plan one frame and wait for it.  orig: [Y, Cb, Cr] int32 planes.
     Returns an IntraPlan covering every part whose CTU is fully inside
-    the picture; uncovered parts fall back to the caller's per-CU path."""
-    fut = submit_plan(orig, sps, qp, lam, chroma_weight, chroma_qps, device)
+    the picture; uncovered parts fall back to the caller's per-CU path.
+    stage1: optional per-size grids from the row-banded path
+    (`parallel.frame_shard.sharded_plan_frame`)."""
+    fut = submit_plan(orig, sps, qp, lam, chroma_weight, chroma_qps, device,
+                      stage1)
     return fetch_plan(fut, sps.pic_height, sps.pic_width)

@@ -8,8 +8,11 @@ the functions here allocate outputs with torch, check device, dtype, shape
 and contiguity, launch, and raise if `cudaGetLastError()` is not 0.
 
     K1 ref_buffers    csrc/ref_buffers.cu
+       ref_buffers_band                  (K1 on one row band with its halos:
+                                          parallel.frame_shard)
     K2 intra_size_rd  csrc/intra_rd.cu   (also SATD-only for _premodes, and
                                           the P plan's intra alternative)
+       analysis_step                     (K2's analysis mode: parallel.mesh)
     K3 intra_cand_rd  csrc/intra_rd.cu
     K4 plan_dp        csrc/plan_dp.cu    (chroma fold, 64x64 level, DP,
                                           emission of both plans)
@@ -18,6 +21,9 @@ and contiguity, launch, and raise if `cudaGetLastError()` is not 0.
                                           MVD-bin model)
        me_frame                          (K5 with me_frame's log bit model
                                           and the winners' costs)
+       inter_me_band, me_frame_band      (K5 on one row band against the
+                                          whole references: parallel.
+                                          plan_shard, parallel.me_shard)
     K6 subpel_planes  csrc/subpel.cu
     K7 inter_uni      csrc/inter_rd.cu   (q-pel refinement, list pick)
        inter_bi_refine                   (K7's per-block-reference mode:
@@ -60,7 +66,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"ref_buffers": 0, "intra_size_rd": 0, "intra_cand_rd": 0,
             "plan_dp": 0, "inter_me": 0, "subpel_planes": 0, "inter_uni": 0,
             "inter_bi_refine": 0, "inter_cu_rd": 0, "inter_cu_rd_b": 0,
-            "me_frame": 0}
+            "me_frame": 0, "ref_buffers_band": 0, "inter_me_band": 0,
+            "me_frame_band": 0, "analysis_step": 0}
 
 
 def reset_launches():
@@ -190,10 +197,13 @@ def _load():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "hm_ref_buffers": [P, I, I, I, I, I, I, I, P, P, P],
+        "hm_ref_buffers_band": [P, I, I, P, P, I, I, I, I, I, I, I, P, P, P],
         "hm_intra_size_rd": [P, P, I, ctypes.POINTER(TqParams), P, P, P, F,
                              I, I, P, P, P, P, P],
         "hm_intra_cand_rd": [P, P, P, I, I, ctypes.POINTER(TqParams), P, P,
                              P, P, P, P],
+        "hm_analysis_step": [P, P, I, ctypes.POINTER(TqParams), P, P, P, P, P,
+                             P, P],
         "hm_chroma_modes5": [P, I, I, I, I, I, P, P],
         "hm_chroma_fold": [P, P, P, P, P, P, I, F, F, P, P, P, P],
         "hm_mode64": [P, I, I, I, P, P, P],
@@ -202,10 +212,10 @@ def _load():
         "hm_emit_plan": [ctypes.POINTER(PlanGrids), P, P],
         "hm_emit_inter_plan": [ctypes.POINTER(InterGrids), P, P],
         "hm_me_down": [P, I, I, I, I, I, P, P],
-        "hm_me_coarse8": [P, P, I, I, I, I, I, P, P],
+        "hm_me_coarse8": [P, P, I, I, I, I, I, I, I, P, P],
         "hm_me_quad": [P, ctypes.c_longlong, I, I, I, I, P, P],
         "hm_me_argmin": [P, I, I, I, I, I, I, P, F, I, P, P],
-        "hm_me_refine": [P, I, I, P, I, I, I, I, I, P, P, F, I, P, P, P],
+        "hm_me_refine": [P, I, P, I, I, I, I, I, I, I, P, P, F, I, P, P, P],
         "hm_subpel_planes": [P, I, I, I, I, P, P],
         "hm_frac_refine": [P, I, I, P, I, I, I, I, I, I, P, I, P, P, P, P, F,
                            P, P, P],
@@ -339,6 +349,32 @@ def ref_buffers(plane, s, bd, strong, h, w):
     return bufs, blocks
 
 
+def ref_buffers_band(band, halo_top, halo_bot, s, bd, strong, band_first,
+                     pic_h):
+    """K1's band mode: the buffers and blocks of every aligned s-block of a
+    (B, W) row band whose first row is picture row band_first, with the
+    band above's last row halo_top (1, W) and the band below's first rows
+    halo_bot (s, W)."""
+    B, W = band.shape
+    _need(band, torch.int32, name="band")
+    _need(halo_top, torch.int32, (1, W), "halo_top")
+    _need(halo_bot, torch.int32, (s, W), "halo_bot")
+    nby, nbx = B // s, W // s
+    if s not in (4, 8, 16, 32) or not (nby and nbx) or band_first < 0 or \
+            band_first + B > pic_h:
+        raise ValueError(f"ref_buffers_band: bad size s={s} for a {B}x{W} "
+                         f"band at row {band_first} of {pic_h}")
+    n = nby * nbx
+    dev = band.device
+    bufs = torch.empty((n, 2, 4 * s + 1), dtype=torch.int32, device=dev)
+    blocks = torch.empty((n, s, s), dtype=torch.int32, device=dev)
+    _launch("ref_buffers_band", "hm_ref_buffers_band", _ptr(band), B, W,
+            _ptr(halo_top), _ptr(halo_bot), s, bd, int(bool(strong)),
+            band_first, min(B + s - 1, pic_h - 1 - band_first), nby, nbx,
+            _ptr(bufs), _ptr(blocks), _stream(band))
+    return bufs, blocks
+
+
 # ---------------------------------------------------------------------------
 # K2 / K3
 # ---------------------------------------------------------------------------
@@ -400,6 +436,29 @@ def intra_cand_rd(bufs, blocks, modes, s, bd, qp, is_luma, use_dst):
             _ptr(_tmat(tabs, s, use_dst)), _ptr(tabs["ang"]),
             _ptr(tabs["model"]), _ptr(dist), _ptr(bits), _stream(bufs))
     return dist, bits
+
+
+def analysis_step(orig, bufs, qp, s, bd):
+    """K2's analysis mode over (..., N, s, s) blocks and their (..., N, 2,
+    4s+1) buffers: (best mode, its SATD, levels (..., N, s, s), the int32
+    total of the SATDs)."""
+    lead = tuple(orig.shape[:-2])
+    n = int(np.prod(lead)) if lead else 1
+    _need(orig, torch.int32, lead + (s, s), "orig")
+    _need(bufs, torch.int32, lead + (2, 4 * s + 1), "bufs")
+    if s not in (4, 8, 16, 32) or n == 0:
+        raise ValueError(f"analysis_step: bad block size {s} or empty batch")
+    dev = orig.device
+    tabs = _device_tables(dev)
+    p = _tq_params(s, bd, qp, True)
+    best = torch.empty(lead, dtype=torch.int32, device=dev)
+    cost = torch.empty(lead, dtype=torch.int32, device=dev)
+    levels = torch.empty(lead + (s, s), dtype=torch.int32, device=dev)
+    total = torch.zeros((), dtype=torch.int32, device=dev)
+    _launch("analysis_step", "hm_analysis_step", _ptr(bufs), _ptr(orig), n,
+            ctypes.byref(p), _ptr(_tmat(tabs, s, True)), _ptr(tabs["ang"]),
+            _ptr(best), _ptr(cost), _ptr(levels), _ptr(total), _stream(orig))
+    return best, cost, levels, total
 
 
 # ---------------------------------------------------------------------------
@@ -536,28 +595,40 @@ def plan_dp(lam, h, w, mode_s, cost_s, cand_s, cmode_s, chroma_add32, d64,
 _ME_BINS, _ME_LOG = 0, 1          # K5's bit models (csrc/inter_me.cu)
 
 
-def _me_grids(kernel, cur, refs, mvp8, h, w):
+def _me_band(kernel, h, row0, full_h):
+    """K5's launch count of a call: `kernel`, or `kernel`_band when the
+    current picture is a row band (rows row0.. of a full_h-row picture)."""
+    full_h = h if full_h is None else full_h
+    if row0 % 4 or row0 < 0 or row0 + h > full_h:
+        raise ValueError(f"K5: band of {h} rows at row {row0} of {full_h}")
+    return (kernel if full_h == h else kernel + "_band"), full_h
+
+
+def _me_grids(kernel, cur, refs, mvp8, h, w, row0, full_h):
     """K5's shared front: the float32 coarse grids (R, 1089, h/s, w/s) of
-    the squares s = 8..64, launches counted under `kernel`."""
+    the squares s = 8..64 of the band cur (rows row0.. of the picture)
+    against the whole (R, full_h, w) references, launches counted under
+    `kernel`."""
     R = refs.shape[0]
     _need(cur, torch.int32, (h, w), "cur")
-    _need(refs, torch.int32, (R, h, w), "refs")
+    _need(refs, torch.int32, (R, full_h, w), "refs")
     _need(mvp8, torch.int32, (R, h // 8, w // 8, 2), "mvp8")
     dev = cur.device
     st = _stream(cur)
-    hc, wc = h // 4, w // 4
+    hc, wc, fhc = h // 4, w // 4, full_h // 4
     n8y, n8x = h // 8, w // 8
     if not (R and n8y and n8x):
         raise ValueError(f"{kernel}: no 8x8 block in {h}x{w} or no reference")
     cd = torch.empty((hc, wc), dtype=torch.int32, device=dev)
-    rd = torch.empty((R, hc, wc), dtype=torch.int32, device=dev)
+    rd = torch.empty((R, fhc, wc), dtype=torch.int32, device=dev)
     _launch(kernel, "hm_me_down", _ptr(cur), 1, h, w, hc, wc, _ptr(cd), st)
-    _launch(kernel, "hm_me_down", _ptr(refs), R, h, w, hc, wc, _ptr(rd), st)
+    _launch(kernel, "hm_me_down", _ptr(refs), R, full_h, w, fhc, wc, _ptr(rd),
+            st)
     O = 33 * 33
     grids = {8: torch.empty((R, O, n8y, n8x), dtype=torch.float32,
                             device=dev)}
-    _launch(kernel, "hm_me_coarse8", _ptr(cd), _ptr(rd), R, hc, wc, n8y, n8x,
-            _ptr(grids[8]), st)
+    _launch(kernel, "hm_me_coarse8", _ptr(cd), _ptr(rd), R, hc, wc, fhc,
+            row0 // 4, n8y, n8x, _ptr(grids[8]), st)
     for s in (16, 32, 64):
         ny, nx = h // s, w // s
         p = grids[s // 2]
@@ -568,31 +639,34 @@ def _me_grids(kernel, cur, refs, mvp8, h, w):
     return grids
 
 
-def inter_me(cur, refs, mvp8, lams, h, w, parts):
+def inter_me(cur, refs, mvp8, lams, h, w, parts, row0=0, full_h=None):
     from hm16_2_tpu_torch.encode.inter_plan import _me_mvp, _shapes
     R = refs.shape[0]
-    grids = _me_grids("inter_me", cur, refs, mvp8, h, w)
+    kernel, full_h = _me_band("inter_me", h, row0, full_h)
+    grids = _me_grids(kernel, cur, refs, mvp8, h, w, row0, full_h)
     dev, st, lam = cur.device, _stream(cur), float(np.float32(lams))
     out = {}
     for s, part, bh, bw, Ny, Nx in _shapes(h, w, parts):
         g = grids[s] if part == 0 else grids[s // 2]
         mvp = _me_mvp(mvp8, s, part)[:, :Ny, :Nx].contiguous()
         coarse = torch.empty((R, Ny * Nx, 2), dtype=torch.int32, device=dev)
-        _launch("inter_me", "hm_me_argmin", _ptr(g), g.shape[2], g.shape[3],
+        _launch(kernel, "hm_me_argmin", _ptr(g), g.shape[2], g.shape[3],
                 part, R, Ny, Nx, _ptr(mvp), lam, _ME_BINS, _ptr(coarse), st)
         mv = torch.empty((R, Ny, Nx, 2), dtype=torch.int32, device=dev)
-        _launch("inter_me", "hm_me_refine", _ptr(cur), h, w, _ptr(refs), R,
-                bh, bw, Ny, Nx, _ptr(coarse), _ptr(mvp), lam, _ME_BINS,
-                _ptr(mv), None, st)
+        _launch(kernel, "hm_me_refine", _ptr(cur), w, _ptr(refs), row0,
+                full_h, R, bh, bw, Ny, Nx, _ptr(coarse), _ptr(mvp), lam,
+                _ME_BINS, _ptr(mv), None, st)
         out[(s, part)] = mv
     return out
 
 
-def me_frame(cur, refs, mvp8, lam, h, w):
+def me_frame(cur, refs, mvp8, lam, h, w, row0=0, full_h=None):
     """K5 in me_frame's mode: {s: (mv (R, N, 2) int32 full-pel (dy, dx),
-    cost (R, N) float32)} for the squares s = 8..64 that fit in h x w."""
+    cost (R, N) float32)} for the squares s = 8..64 that fit in h x w; cur
+    may be the band of rows row0.. of a full_h-row picture."""
     R = refs.shape[0]
-    grids = _me_grids("me_frame", cur, refs, mvp8, h, w)
+    kernel, full_h = _me_band("me_frame", h, row0, full_h)
+    grids = _me_grids(kernel, cur, refs, mvp8, h, w, row0, full_h)
     dev, st, lamf = cur.device, _stream(cur), float(np.float32(lam))
     out = {}
     for s in (8, 16, 32, 64):
@@ -602,13 +676,13 @@ def me_frame(cur, refs, mvp8, lam, h, w):
         g = grids[s]
         mvp = mvp8[:, ::s // 8, ::s // 8][:, :ny, :nx].contiguous()
         coarse = torch.empty((R, ny * nx, 2), dtype=torch.int32, device=dev)
-        _launch("me_frame", "hm_me_argmin", _ptr(g), ny, nx, 0, R, ny, nx,
+        _launch(kernel, "hm_me_argmin", _ptr(g), ny, nx, 0, R, ny, nx,
                 _ptr(mvp), lamf, _ME_LOG, _ptr(coarse), st)
         mv = torch.empty((R, ny * nx, 2), dtype=torch.int32, device=dev)
         cost = torch.empty((R, ny * nx), dtype=torch.float32, device=dev)
-        _launch("me_frame", "hm_me_refine", _ptr(cur), h, w, _ptr(refs), R, s,
-                s, ny, nx, _ptr(coarse), _ptr(mvp), lamf, _ME_LOG, _ptr(mv),
-                _ptr(cost), st)
+        _launch(kernel, "hm_me_refine", _ptr(cur), w, _ptr(refs), row0,
+                full_h, R, s, s, ny, nx, _ptr(coarse), _ptr(mvp), lamf,
+                _ME_LOG, _ptr(mv), _ptr(cost), st)
         out[s] = (mv, cost)
     return out
 

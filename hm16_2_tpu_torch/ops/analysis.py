@@ -5,8 +5,9 @@ for the host fallback search.
 Counterpart of `hm16_2_tpu/ops/analysis.py`.  That module imports JAX, which
 the port never does, so its constant tables (`angular_tables`, `_hadamard`)
 and numpy helpers are copied here; tests assert the copies equal the
-originals.  On the CUDA path these functions are not called: the fused
-kernels in `csrc/intra_rd.cu` compute the same integers.
+originals (`pack_ref_buffers` too, which `parallel.mesh.example_batch`
+uses).  On the CUDA path these functions are not called: the fused kernels
+in `csrc/intra_rd.cu` compute the same integers.
 
 Integer products.  Torch has no int32 matrix product on CUDA, and these
 plain versions also run on the card (the smoke test holds each kernel
@@ -214,6 +215,18 @@ def batched_quant(coeffs, qp: int, bit_depth: int, log2_tr: int,
     c = coeffs.to(torch.int32)
     level = (c.abs() * scale + add) >> q_bits
     return (torch.sign(c) * torch.clamp(level, 0, 32767)).to(torch.int32)
+
+
+def pack_ref_buffers(tops_u, lefts_u, tops_f, lefts_f):
+    """Build (N, 2, 4s+1) ref buffers from top/left arrays (numpy)."""
+    n = tops_u.shape[0]
+    s = (tops_u.shape[1] - 1) // 2
+    buf = np.zeros((n, 2, 4 * s + 1), dtype=np.int32)
+    for pi, (tt, ll) in enumerate(((tops_u, lefts_u), (tops_f, lefts_f))):
+        buf[:, pi, 2 * s] = tt[:, 0]
+        buf[:, pi, 2 * s + 1:] = tt[:, 1:]
+        buf[:, pi, :2 * s] = ll[:, 1:][:, ::-1]
+    return buf
 
 
 def predict_all_modes_np(buf_u, buf_f, s: int, is_luma: bool = True,

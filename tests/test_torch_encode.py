@@ -87,7 +87,9 @@ def test_runs_without_jax(tmp_path):
     """With jax and the whole JAX package unimportable, the port encodes
     all-intra, low-delay P, random access and the per-CU inter search,
     decodes each stream with its own decoder (every hash intact), runs its
-    encoder and decoder CLIs, and loads no module of the JAX package."""
+    encoder and decoder CLIs, imports its row-banded programs and runs
+    their benchmark over two CPU bands, and loads no module of the JAX
+    package."""
     code = """
 import os, sys
 sys.modules['jax'] = None
@@ -133,6 +135,10 @@ assert encode.main(['-c', 'cfg/encoder_lowdelay_P_main.cfg',
 with open(os.path.join(d, 'out.bin'), 'rb') as f:
     ok([f.read()], 3)
 assert decode.main([os.path.join(d, 'out.bin')]) == 0
+from hm16_2_tpu_torch.parallel import frame_shard, me_shard, mesh, plan_shard
+from hm16_2_tpu_torch.tools import scaling_bench
+assert scaling_bench.main(['--Devices', 'cpu,cpu', '--size', '128x128',
+                           '-n', '1']) == 0
 assert sys.modules['jax'] is None and sys.modules['hm16_2_tpu'] is None
 assert not [m for m in sys.modules if m.startswith('hm16_2_tpu.')]
 print('ok')

@@ -14,6 +14,10 @@ from make_fixtures import make_yuv
 
 torch.set_num_threads(1)
 
+# the kernel modes of the row-banded programs (hm16_2_tpu_torch/parallel/)
+BAND = ("ref_buffers_band", "inter_me_band", "me_frame_band",
+        "analysis_step")
+
 
 @pytest.fixture
 def cuda():
@@ -99,10 +103,10 @@ def test_ldp_on_card_equals_cpu(cuda):
 
     kernels.reset_launches()
     on_card = run(cuda)
-    idle = ("inter_bi_refine", "inter_cu_rd_b", "me_frame")
+    idle = ("inter_bi_refine", "inter_cu_rd_b", "me_frame") + BAND
     assert all(v > 0 for k, v in kernels.LAUNCHES.items()
                if k not in idle), kernels.LAUNCHES
-    assert kernels.LAUNCHES["me_frame"] == 0
+    assert all(kernels.LAUNCHES[k] == 0 for k in ("me_frame",) + BAND)
     assert on_card == run(torch.device("cpu"))
     pics = Decoder().decode_stream(b"".join(on_card))
     assert [p.hash_ok for p in pics] == [True] * 5
@@ -129,8 +133,9 @@ def test_ra_on_card_equals_cpu(cuda):
     kernels.reset_launches()
     on_card = run(cuda)
     assert all(v > 0 for k, v in kernels.LAUNCHES.items()
-               if k not in ("inter_cu_rd", "me_frame")), kernels.LAUNCHES
-    assert kernels.LAUNCHES["me_frame"] == 0
+               if k not in ("inter_cu_rd", "me_frame") + BAND), \
+        kernels.LAUNCHES
+    assert all(kernels.LAUNCHES[k] == 0 for k in ("me_frame",) + BAND)
     assert on_card == run(torch.device("cpu"))
     pics = Decoder().decode_stream(b"".join(on_card))
     assert [p.hash_ok for p in pics] == [True] * 9
@@ -171,3 +176,47 @@ def test_per_cu_search_on_card_equals_cpu(cuda, monkeypatch):
     assert on_card == run(torch.device("cpu"))
     pics = Decoder().decode_stream(b"".join(on_card))
     assert [p.hash_ok for p in pics] == [True] * 4
+
+
+@pytest.mark.gpu
+def test_band_kernels_equal_plain(cuda):
+    """K1's band mode (n = 2 and 4, s = 4..32), K5's band mode in both bit
+    models (n = 2 and 4, four references, priors up to +-70 full-pel) and
+    K2's analysis mode (s = 4..32) equal their plain versions at the shapes
+    of a 256x256 picture, and the banded programs equal the whole
+    picture's on the card."""
+    import chip_smoke
+    frames = make_yuv(256, 256, 5, seed=14)
+    stats = chip_smoke.check_band_kernels(frames, cuda, reps=1)
+    assert all(v["err"] == 0.0 for v in stats.values())
+    assert all(stats[k]["ms"] > 0 for k in BAND)
+
+
+@pytest.mark.gpu
+def test_banded_ra_on_card_equals_cpu(cuda):
+    """A 256x256 random-access stream (IDR + one GOP of eight B pictures)
+    with both plans banded over 2 and over 4 bands of the card equals the
+    CPU's banded stream; every band kernel of the path was launched."""
+    import chip_smoke
+    from hm16_2_tpu_torch.decode.top import Decoder
+    from hm16_2_tpu_torch import kernels
+    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
+    from hm16_2_tpu_torch.parallel.frame_shard import make_row_mesh
+    frames = make_yuv(256, 256, 9, seed=15)
+    cfg = lambda: EncoderConfig(256, 256, qp=32, intra_period=32, gop="ra8")
+
+    def run(dev, n):
+        with chip_smoke._banded(make_row_mesh([dev] * n)) as seen:
+            out = chip_smoke._push_all(Encoder(cfg(), dev), frames)
+        assert seen["inter"] == 8
+        return out
+
+    kernels.reset_launches()
+    on_card = [run(cuda, n) for n in (2, 4)]
+    assert all(kernels.LAUNCHES[k] > 0 for k in (
+        "ref_buffers_band", "inter_me_band")), kernels.LAUNCHES
+    assert kernels.LAUNCHES["inter_me"] == 0
+    on_cpu = run(torch.device("cpu"), 2)
+    assert on_card[0] == on_cpu and on_card[1] == on_cpu
+    pics = Decoder().decode_stream(b"".join(on_cpu))
+    assert [p.hash_ok for p in pics] == [True] * 9
