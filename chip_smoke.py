@@ -8,8 +8,10 @@ against its plain PyTorch version on the card at the shapes of a 1920x1080
 all-intra frame, of a 1080p P picture with four live references, of a
 1080p B picture with two past and two future references and of the frame ME
 of a 1080p picture without a plan (four references, and the one reference
-of the per-CU search's IPPP pictures, a non-zero prior), then drives the
-port's paths:
+of the per-CU search's IPPP pictures, a non-zero prior), and holds K5 and
+K7 to theirs on the edge inputs their invariants rest on (flat pictures,
+ramps, 12-bit noise, priors of +-70, a row band; a flat 1080p picture;
+`check_me_edges`), then drives the port's paths:
 
 - all-intra (HM's common-test All Intra Main configuration: QP 32, 8-bit
   4:2:0, deblocking, SAO, MD5 picture hash) over three 1080p frames through
@@ -21,7 +23,7 @@ port's paths:
   period 32, QP 32 with offsets +1..+4 by depth) over nine 1080p frames,
   IDR + one GOP of eight B pictures, through `push_frame` / `flush`;
 - the per-CU inter search (no fused plan, HM16_NO_INTER_PLAN, with the
-  fork's RRSP fast partitioning) over an IDR and two P pictures of 1080p
+  fork's RRSP fast partitioning) over an IDR and one P picture of 1080p
   through `encode_frame`;
 - the encoder CLI on its default device (HM's Low Delay P Main cfg);
 - the row-banded path (`hm16_2_tpu_torch/parallel/`) with its bands on this
@@ -519,6 +521,149 @@ def check_me_frame(frames, dev, reps=3, stats=None, nref=4):
     return stats
 
 
+# the inputs on which the K5 / K7 redesign's invariants rest
+ME_EDGE_CASES = ("flat", "flat_vs_shifted", "noise12", "far_priors", "band")
+
+
+def me_edge_inputs(case, h=64, w=128, nref=2):
+    """Seeded numpy inputs of one edge case of K5: "flat" (every SSD 0, the
+    bits decide every argmin, with ties), "flat_vs_shifted" (a flat
+    picture against horizontal and vertical ramps: rows or columns of
+    equal SSE, ties between the refinement's two centres), "noise12"
+    (12-bit noise: the 64x64 int32 SSE wraps), "far_priors" (near-flat
+    content and priors of +-69 / +-70 full-pel: MVs and windows past every
+    picture edge), "band" (rows 64.. of an (h + 128)-row picture against
+    the whole references, priors of +-70 across the band's edges).
+    Returns cur (h, w), refs (nref, full_h, w), bit depth, row0, full_h
+    and the per-reference full-pel priors mvp8 (nref, h/8, w/8, 2)."""
+    rng = np.random.default_rng(31 + ME_EDGE_CASES.index(case))
+    full_h, row0, bd, prior = h, 0, 8, 20
+    if case == "flat":
+        cur, refs = np.full((h, w), 100), np.full((nref, h, w), 100)
+    elif case == "flat_vs_shifted":
+        cur, prior = np.full((h, w), 128), 0
+        ramp = lambda n, r: 96 + (np.arange(n) + 3 * r) // 2
+        refs = np.stack([np.broadcast_to(ramp(w, r)[None, :], (h, w))
+                         if r % 2 == 0 else
+                         np.broadcast_to(ramp(h, r)[:, None], (h, w))
+                         for r in range(nref)])
+    elif case == "noise12":
+        bd, prior = 12, 8
+        base = rng.integers(0, 4096, (h + 8, w + 8))
+        cur = base[4:4 + h, 4:4 + w]
+        refs = np.stack([rng.integers(0, 4096, (h, w)) if r % 2 == 0 else
+                         base[4 + r:4 + r + h, 2:2 + w] for r in range(nref)])
+    elif case == "far_priors":
+        cur = 128 + rng.integers(-1, 2, (h, w))
+        refs = 128 + rng.integers(-1, 2, (nref, h, w))
+    else:
+        full_h, row0, prior = h + 128, 64, 70
+        base = rng.integers(0, 256, (full_h + 16, w + 16))
+        refs = np.stack([np.clip(np.roll(base, (3 * r + 2, -2 * r - 1), (0, 1))
+                                 [8:8 + full_h, 8:8 + w]
+                                 + rng.integers(-3, 4, (full_h, w)), 0, 255)
+                         for r in range(nref)])
+        cur = base[8 + row0:8 + row0 + h, 8:8 + w]
+    shape = (nref, h // 8, w // 8, 2)
+    mvp8 = rng.choice([-70, -69, 69, 70], shape) if case == "far_priors" \
+        else rng.integers(-prior, prior + 1, shape)
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
+    return {"cur": i32(cur), "refs": i32(refs), "bd": bd, "row0": row0,
+            "full_h": full_h, "mvp8": i32(mvp8)}
+
+
+def k7_edge_inputs(case, d, bh, bw):
+    """K7's inputs on the pictures of me_edge_inputs(case) (not "band": K7
+    has no band mode) for blocks of bh x bw: integer MVs mv and quarter-pel
+    anchors p4 (R, ny, nx, 2) of frac_refine; for frac_refine_any (bh ==
+    bw) quarter-pel start MVs (negative odd ones too), per-block references,
+    anchors and the other list's hypotheses.  "far_priors" puts every MV at
+    +-69 or +-70 full-pel, the others within +-20."""
+    rng = np.random.default_rng(41 + ME_EDGE_CASES.index(case) + bh + 3 * bw)
+    R, h, w = d["refs"].shape[0], *d["cur"].shape
+    ny, nx = h // bh, w // bw
+    n = ny * nx
+    if case == "far_priors":
+        full = lambda sh: rng.choice([-70, -69, 69, 70], sh)
+    else:
+        full = lambda sh: rng.integers(-20, 21, sh)
+    quarter = lambda sh: 4 * full(sh) + rng.integers(-3, 4, sh)
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
+    return {"mv": i32(full((R, ny, nx, 2))),
+            "p4": i32(quarter((R, ny, nx, 2))),
+            "mv4": i32(quarter((n, 2))), "uref": i32(rng.integers(0, R, n)),
+            "anchor": i32(quarter((n, 2))),
+            "o_uref": i32(rng.integers(0, R, n)),
+            "o_mv4": i32(quarter((n, 2)))}
+
+
+# K7's block shapes in the edge cases: the smallest, a rect, the largest
+K7_EDGE_SHAPES = ((8, 8), (16, 8), (64, 64))
+
+
+def _edge_lams():
+    """(lams of the plan's ME and K7, lam of me_frame) at QP, float32."""
+    return (float(np.float32(np.sqrt(0.578 * 2.0 ** ((QP - 12) / 3.0)))),
+            float(np.float32(np.sqrt(0.85 * 2.0 ** ((QP - 12) / 3.0)))))
+
+
+def check_me_edges(dev, size=(64, 128), big=(1080, 1920)):
+    """K5 (both bit models, whole and band) and K7 (uni and bi modes) on
+    the card against their plain versions on the same card, every output
+    equal bit for bit, on the edge inputs (me_edge_inputs, at `size`; the
+    CPU tests hold the plain versions to the JAX package on the same
+    inputs), then on a flat picture at `big` with four references: every
+    coarse SSD ties and the bits decide.  Raises on the first difference;
+    times nothing."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import inter_me as M
+    from hm16_2_tpu_torch.encode import inter_plan as P
+    lams, lam_me = _edge_lams()
+    t = lambda a: torch.from_numpy(a).to(dev)
+    n_eq = 0
+
+    def same(label, got, want):
+        nonlocal n_eq
+        _compare(f"edge {label}", _flat(got), _flat(want))
+        n_eq += 1
+
+    cases = [(c, me_edge_inputs(c, *size)) for c in ME_EDGE_CASES]
+    cases.append(("flat", me_edge_inputs("flat", *big, nref=4)))
+    for case, d in cases:
+        h, w = d["cur"].shape
+        label = f"{case} {w}x{h}"
+        cur, refs, mvp8 = t(d["cur"]), t(d["refs"]), t(d["mvp8"])
+        r0, fh = d["row0"], d["full_h"]
+        same(f"{label} int_me",
+             K.inter_me(cur, refs, mvp8, lams, h, w, True, r0, fh),
+             P._int_me_plain(cur, refs, mvp8, lams, h, w, True, r0))
+        same(f"{label} me_frame",
+             K.me_frame(cur, refs, mvp8, lam_me, h, w, r0, fh),
+             M._me_frame_plain(cur, refs, mvp8, lam_me, h, w, r0))
+        if case == "band":
+            continue
+        sub = K.subpel_planes(refs, d["bd"], h, w)
+        shapes = K7_EDGE_SHAPES if (h, w) == size else \
+            [(bh, bw) for _, _, bh, bw, _, _ in P._shapes(h, w, True)]
+        for bh, bw in shapes:
+            k = {key: t(v) for key, v in k7_edge_inputs(case, d, bh,
+                                                        bw).items()}
+            same(f"{label} frac_refine {bh}x{bw}",
+                 K.frac_refine(sub, cur, k["mv"], k["p4"], lams, bh, bw),
+                 P._frac_refine_plain(sub, cur, k["mv"], k["p4"], lams, bh,
+                                      bw))
+            if bh != bw:
+                continue
+            a = (sub, cur, k["mv4"], k["uref"], k["anchor"], k["o_uref"],
+                 k["o_mv4"], lams, bh)
+            same(f"{label} frac_refine_any {bh}x{bw}", K.frac_refine_any(*a),
+                 P._frac_refine_any_plain(*a))
+    print(f"K5/K7 edge inputs ({', '.join(ME_EDGE_CASES)} at "
+          f"{size[1]}x{size[0]}; flat {big[1]}x{big[0]}, 4 refs): {n_eq} "
+          f"kernel outputs equal their plain versions  [{CARD}]", flush=True)
+    return n_eq
+
+
 def _kernel_split(label, fn, top=4):
     """Run fn under torch.profiler (device activity) and print its device
     time by kernel, the `top` largest."""
@@ -707,6 +852,23 @@ PLAN_ONLY = ("inter_me", "subpel_planes", "inter_uni", "inter_bi_refine",
              "inter_cu_rd", "inter_cu_rd_b")      # kernels of the fused plan
 
 
+def _ptxas(report, names):
+    """ptxas's registers, stack, spills and static shared memory of each
+    kernel whose mangled name holds one of `names`, one line each."""
+    out, entry = [], None
+    for line in report.splitlines() + ["=="]:
+        if "Compiling entry function" in line or line.startswith("=="):
+            if entry:
+                out.append(f"ptxas {entry[0]} {entry[1]}: "
+                           + "; ".join(entry[2:]))
+            name = next((n for n in names if n in line), None)
+            entry = [name, line.split("'")[1]] if name else None
+        elif entry and "Function properties" not in line:
+            entry.append(line.split(":", 1)[-1].strip() if "ptxas" in line
+                         else line.strip())
+    return out
+
+
 def _launches_of(K, run, label, need):
     """Drive `run` with every launch count at 0; fail if a kernel of `need`
     was never launched.  Returns (result, counts)."""
@@ -754,6 +916,14 @@ def _env(name, value):
             os.environ[name] = old
 
 
+# K5's and K7's kernels by the names the profiler gives them
+K5_K7_SPLIT = {"K5 refinement": ("me_refine_kernel",),
+               "K5 coarse argmin": ("me_argmin_kernel",),
+               "K5 rest (downsample, coarse grid, pyramid)": (
+                   "me_down_kernel", "me_coarse8_kernel", "me_quad_kernel"),
+               "K7 frac_refine": ("frac_refine_kernel",)}
+
+
 def _timed_pictures(enc, code, label, top):
     """Code the pictures of `code()` (a list of AUs) under torch.profiler
     (device activity only); prints the device busy share and the `top`
@@ -774,6 +944,13 @@ def _timed_pictures(enc, code, label, top):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.3f}"
               f" ms  x{e.count}", flush=True)
+    split = {g: sum(e.self_device_time_total for e in events
+                    if any(k in e.key for k in keys)) / 1e3
+             for g, keys in K5_K7_SPLIT.items()}
+    if any(split.values()):
+        print(f"K5/K7 device ms of the {label}: " + "; ".join(
+            f"{g} {v:.3f}" for g, v in split.items()) + f"  [{CARD}]",
+            flush=True)
     return aus, wall, {k: v - before.get(k, 0.0)
                        for k, v in enc.stage_ms.items()}
 
@@ -862,7 +1039,7 @@ def ra_phase(frames, dev):
 
 
 def fallback_phase(frames, dev):
-    """The per-CU inter search on an IDR and two P pictures (encode_frame,
+    """The per-CU inter search on an IDR and P pictures (encode_frame,
     intra period 8, QP 32, HM16_NO_INTER_PLAN, RRSP on): each P picture
     runs one frame ME on the card (K5 in me_frame's mode) and its CU search
     and commit on the host.  Prints s per P picture, their stage_ms, the
@@ -1086,6 +1263,10 @@ def main():
     path, secs = K.build()
     print(f"kernels built in {secs:.1f} s: {os.path.relpath(path, ROOT)}  "
           f"[{CARD}]", flush=True)
+    for line in _ptxas(K.resource_usage(), ("me_argmin_kernel",
+                                            "me_refine_kernel",
+                                            "frac_refine_kernel")):
+        print(line, flush=True)
     if native.get_lib() is None or native.get_dsp() is None:
         raise AssertionError("native commit engine did not build")
 
@@ -1106,6 +1287,8 @@ def main():
     check_band_kernels(frames[:1], dev, stats=stats, me=False)
     xga = _frames(1024, 768, 9)
     check_band_kernels(xga[:5], dev, stats=stats, analysis=())
+    # K5 and K7 on the inputs their invariants rest on, and a flat 1080p
+    check_me_edges(dev)
 
     # all-intra: warm-up frame, then a timed 3-frame encode_stream
     from hm16_2_tpu_torch.encode.intra_rd import fetch_plan
@@ -1145,9 +1328,10 @@ def main():
     ra_aus, ra_counts = ra_phase(frames, dev)
     _decode_check(ra_aus, 9, "RA")
 
-    # the per-CU inter search: IDR + two P pictures without a fused plan
-    fb_aus, fb_counts = fallback_phase(frames[:3], dev)
-    _decode_check(fb_aus, 3, "per-CU search")
+    # the per-CU inter search: IDR + one P picture without a fused plan (its
+    # host search takes about a minute per 1080p P picture)
+    fb_aus, fb_counts = fallback_phase(frames[:2], dev)
+    _decode_check(fb_aus, 2, "per-CU search")
 
     small_checks(dev)
     cli_counts = cli_phase()

@@ -26,25 +26,51 @@
 // at the full height.  With row0 = 0 and the full height equal to the
 // band's, the launches are the whole-picture ones.
 //
-// What bounds it: the coarse grid, 1089 offsets x 4 samples per 8x8 block
-// and reference (at 1080p with 4 references, 141M float32 = 564 MB written
-// and read back by the argmins), and the refinement's 98 candidate SSEs per
-// block.  Design, simple first: one thread per grid entry, one thread per
-// (reference, block) for the coarse argmin (consecutive blocks read
-// consecutive grid entries), one CTA per (reference, block) for the
-// refinement with a warp sum per candidate and integer atomics, so every
-// sum is order-independent and exact.  Costs follow XLA:CPU's rounding: both
-// cost sites are fused multiply-adds (`__fmaf_rn`, file built with
-// --fmad=false); argmins keep the lowest index on ties and the coarse-centred
-// candidate wins an equal cost.
+// What bounds it on the H100.  The coarse argmin reads the grid once (1089
+// float32 per block and reference; 564 MB for the 8x8 shape at 1080p with
+// four references): bytes, if enough offsets are in flight.  One thread per
+// (reference, block) walking all 1089 offsets leaves a 64x64 shape with 15
+// CTAs of dependent 1089-step chains, and a row band with fewer still, so
+// the argmin here gives each block 16 threads: a CTA takes 32 consecutive
+// blocks of one reference (lane = block, so a warp reads 32 neighbouring
+// grid cells) times 16 contiguous slices of the offsets (one warp each).
+// Each block's 33 x and 33 y component bits are tabulated once per CTA in
+// shared memory (the bits are separable; the log model's ln runs 66 times a
+// block, not 2178), summed with the one rounded add of the reference.  The
+// refinement is integer ALU work, 98 candidate SSEs over the block: it
+// stages the block and its two (bh+6) x (bw+6) windows (clamped at load)
+// in shared memory once, by asynchronous 4-byte copies (cp.async) whose
+// sources a row table gives, and each thread owns one (centre, dx, column)
+// and slides down the rows with a seven-row register ring, so it keeps the
+// seven dy sums in registers; one shuffle reduction per candidate and warp
+// replaces the old per-32-pixel warp sum and shared atomic, and a warp per
+// block takes the two 49-way argmins.  Small shapes pack 2-4 blocks into a
+// CTA (never fewer than 14 warps).
+//
+// Invariants (the tests hold each): argmins give ties to the lowest index
+// (each offset slice keeps its first minimum and the slices merge in order
+// with a strict <; the 49-way warp argmins compare (cost, index) pairs) and
+// the coarse-centred candidate wins an equal cost; SSEs are int32 sums that
+// wrap like the reference's (unsigned accumulation, the 64x64 >> 2 before
+// the sum); both cost sites are fused multiply-adds (`__fmaf_rn`, file
+// built with --fmad=false) of float32 bits and __int2float_rn of the
+// wrapped sum.
 #include "intra_common.cuh"
 
 namespace hm {
 
 constexpr int kCoarseR = 16;
-constexpr int kNOff = (2 * kCoarseR + 1) * (2 * kCoarseR + 1);
+constexpr int kCoarseN = 2 * kCoarseR + 1;
+constexpr int kNOff = kCoarseN * kCoarseN;
 constexpr int kRefineR = 3;
-constexpr int kNRef = (2 * kRefineR + 1) * (2 * kRefineR + 1);
+constexpr int kRefineN = 2 * kRefineR + 1;
+constexpr int kNRef = kRefineN * kRefineN;
+
+// the coarse argmin's CTA: kArgLanes blocks x kArgGroups offset slices
+constexpr int kArgLanes = 32;
+constexpr int kArgGroups = 16;
+constexpr int kArgSpan = (kNOff + kArgGroups - 1) / kArgGroups;
+static_assert((kArgGroups - 1) * kArgSpan < kNOff, "an empty offset slice");
 
 // XLA:CPU's float32 natural log for a positive normal x: the Cephes
 // polynomial of its LLVM IR, with every product that has one use fused into
@@ -80,15 +106,20 @@ __device__ __forceinline__ float mv_comp_bits(int d) {
                    0x1.715476p+1f, 1.f);
 }
 
-// the two bit models, a template parameter of the argmin and refinement
+// the two bit models, a template parameter of the argmin and refinement:
+// the bits of one MV delta component
 struct MvdBins {           // the plan: exact MVD bins
-  __device__ static float bits(int dx, int dy) { return mvd_bits(dx, dy); }
+  __device__ static float comp(int d) { return mvd_comp_bits(d); }
 };
 struct MvLog {             // me_frame: the approximate log model
-  __device__ static float bits(int dx, int dy) {
-    return __fadd_rn(mv_comp_bits(dy), mv_comp_bits(dx));
-  }
+  __device__ static float comp(int d) { return mv_comp_bits(d); }
 };
+
+// the bits of an MV delta: its two components' bits, one rounded add
+template <class Bits>
+__device__ __forceinline__ float mv_bits(int dx, int dy) {
+  return __fadd_rn(Bits::comp(dx), Bits::comp(dy));
+}
 
 __global__ void me_down_kernel(const int* __restrict__ src, int P, int h,
                                int w, int hc, int wc, int* __restrict__ out) {
@@ -113,8 +144,8 @@ __global__ void me_coarse8_kernel(const int* __restrict__ cd,
   int bx = q % n8x, by = (q / n8x) % n8y;
   int o = (q / ((long long)n8x * n8y)) % kNOff;
   int r = q / ((long long)kNOff * n8y * n8x);
-  int oy = o / (2 * kCoarseR + 1) - kCoarseR;
-  int ox = o % (2 * kCoarseR + 1) - kCoarseR;
+  int oy = o / kCoarseN - kCoarseR;
+  int ox = o % kCoarseN - kCoarseR;
   const int* ref = rd + (size_t)r * fhc * wc;
   int sum = 0;
   for (int i = 0; i < 2; ++i)
@@ -144,97 +175,260 @@ __global__ void me_quad_kernel(const float* __restrict__ p, long long RO,
 // coarse argmin per (reference, block) of one shape.  mode 0: the grid is
 // the shape's own (R, O, gy, gx); mode 1 (2NxN): sum of x-pairs of the half
 // grid; mode 2 (Nx2N): sum of y-pairs.  mvp: (R, Ny, Nx, 2) full-pel prior.
+// CTA (kArgLanes, kArgGroups), grid (ceil(N / kArgLanes), R): lane = block
+// blockIdx.x * kArgLanes + x, warp y = the offsets [y * span, (y + 1) *
+// span).
 template <class Bits>
-__global__ void me_argmin_kernel(const float* __restrict__ g, int gy, int gx,
-                                 int mode, int R, int Ny, int Nx,
-                                 const int* __restrict__ mvp, float lam,
-                                 int* __restrict__ coarse) {
-  int N = Ny * Nx;
-  long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= (long long)R * N) return;
-  int n = q % N, r = q / N, by = n / Nx, bx = n % Nx;
-  int py = mvp[q * 2], px = mvp[q * 2 + 1];
-  const float* gr = g + (size_t)r * kNOff * gy * gx;
-  int best = 0;
-  float best_v = 0.f;
-  for (int o = 0; o < kNOff; ++o) {
-    const float* go = gr + (size_t)o * gy * gx;
-    float v = mode == 0 ? go[by * gx + bx]
-            : mode == 1 ? __fadd_rn(go[by * gx + 2 * bx], go[by * gx + 2 * bx + 1])
-                        : __fadd_rn(go[(2 * by) * gx + bx], go[(2 * by + 1) * gx + bx]);
-    int oy = o / (2 * kCoarseR + 1) - kCoarseR;
-    int ox = o % (2 * kCoarseR + 1) - kCoarseR;
-    float c = __fmaf_rn(lam, Bits::bits(4 * (ox - px), 4 * (oy - py)), v);
-    if (o == 0 || c < best_v) { best = o; best_v = c; }
+__global__ void __launch_bounds__(kArgLanes * kArgGroups)
+me_argmin_kernel(const float* __restrict__ g, int gy, int gx, int mode,
+                 int Ny, int Nx, const int* __restrict__ mvp, float lam,
+                 int* __restrict__ coarse) {
+  __shared__ float bits_x[kCoarseN][kArgLanes], bits_y[kCoarseN][kArgLanes];
+  __shared__ float part_c[kArgGroups][kArgLanes];
+  __shared__ int part_o[kArgGroups][kArgLanes];
+  const int N = Ny * Nx, r = blockIdx.y;
+  const int lane = threadIdx.x, grp = threadIdx.y;
+  const int n0 = blockIdx.x * kArgLanes, n = n0 + lane;
+  // the component bits of the 33 x and 33 y offsets of each block
+  for (int q = grp * kArgLanes + lane; q < 2 * kCoarseN * kArgLanes;
+       q += kArgLanes * kArgGroups) {
+    int l = q % kArgLanes, j = (q / kArgLanes) % kCoarseN;
+    bool is_y = q >= kCoarseN * kArgLanes;
+    float b = 0.f;
+    if (n0 + l < N) {
+      size_t e = (size_t)r * N + n0 + l;
+      b = Bits::comp(4 * (j - kCoarseR - mvp[e * 2 + (is_y ? 0 : 1)]));
+    }
+    (is_y ? bits_y : bits_x)[j][l] = b;
   }
-  coarse[q * 2] = 4 * (best / (2 * kCoarseR + 1) - kCoarseR);
-  coarse[q * 2 + 1] = 4 * (best % (2 * kCoarseR + 1) - kCoarseR);
+  __syncthreads();
+  // this warp's slice of the offsets, the first least cost
+  const int o0 = grp * kArgSpan, o1 = min(o0 + kArgSpan, kNOff);
+  float best_c = 0.f;
+  int best_o = o0;
+  if (n < N) {
+    int by = n / Nx, bx = n % Nx;
+    size_t cell = mode == 0 ? (size_t)by * gx + bx
+                : mode == 1 ? (size_t)by * gx + 2 * bx
+                            : (size_t)(2 * by) * gx + bx;
+    const size_t plane = (size_t)gy * gx, second = mode == 1 ? 1 : gx;
+    const float* go = g + ((size_t)r * kNOff + o0) * plane + cell;
+    int oy = o0 / kCoarseN, ox = o0 % kCoarseN;
+#pragma unroll 4
+    for (int o = o0; o < o1; ++o, go += plane) {
+      float v = mode == 0 ? go[0] : __fadd_rn(go[0], go[second]);
+      float c = __fmaf_rn(lam, __fadd_rn(bits_x[ox][lane], bits_y[oy][lane]),
+                          v);
+      if (o == o0 || c < best_c) { best_c = c; best_o = o; }
+      if (++ox == kCoarseN) { ox = 0; ++oy; }
+    }
+  }
+  part_c[grp][lane] = best_c;
+  part_o[grp][lane] = best_o;
+  __syncthreads();
+  // slices in offset order, strict <: the lowest offset among equal costs
+  if (grp == 0 && n < N) {
+    float c = part_c[0][lane];
+    int o = part_o[0][lane];
+    for (int k = 1; k < kArgGroups; ++k)
+      if (part_c[k][lane] < c) { c = part_c[k][lane]; o = part_o[k][lane]; }
+    size_t e = (size_t)r * N + n;
+    coarse[e * 2] = 4 * (o / kCoarseN - kCoarseR);
+    coarse[e * 2 + 1] = 4 * (o % kCoarseN - kCoarseR);
+  }
 }
 
-// +-3 full-pel SSE refinement around the coarse winner and around zero;
-// one CTA per (block, reference): grid (N, R).  cur: the band (w wide) whose
+// the refinement's CTA: refine_blocks(bw) blocks, each 2 centres x 7 dx x bw
+// columns of threads; bw in {8, 16, 32, 64}
+__host__ __device__ constexpr int refine_blocks(int bw) {
+  return bw >= 32 ? 1 : 32 / bw;
+}
+__host__ __device__ constexpr int refine_threads(int bw) {
+  return refine_blocks(bw) * 2 * kRefineN * bw;
+}
+constexpr int kRefineMaxThreads = refine_threads(64);
+
+// shared memory of the refinement in bytes: the windows' row table (source
+// offsets), the windows, the current blocks, the column partials, the
+// costs, the blocks' (reference, y, x, cy, cx) and the rows' first columns
+__host__ __device__ inline size_t refine_smem_bytes(int bh, int bw) {
+  size_t nb = refine_blocks(bw), parts = bw > 32 ? bw / 32 : 1;
+  size_t wh = bh + 2 * kRefineR, ww = bw + 2 * kRefineR, rows = nb * 2 * wh;
+  return sizeof(long long) * rows +
+         sizeof(int) * (rows * ww + nb * bh * bw + nb * 2 * kNRef * parts +
+                        nb * 2 * kNRef + nb * 5 + rows);
+}
+
+// +-3 full-pel SSE refinement around the coarse winner and around zero of
+// the (reference, block) pairs e = r * N + n.  cur: the band (w wide) whose
 // first row is picture row row0; refs: (R, rh, w) whole pictures.  cost_out,
-// when given, receives the winner's cost beside its MV.
+// when given, receives the winner's cost beside its MV.  bh, bw: powers of
+// two.
 template <class Bits>
-__global__ void me_refine_kernel(const int* __restrict__ cur, int w,
-                                 const int* __restrict__ refs, int row0,
-                                 int rh, int bh, int bw,
-                                 int Nx, const int* __restrict__ coarse,
-                                 const int* __restrict__ mvp, float lam,
-                                 int* __restrict__ out,
-                                 float* __restrict__ cost_out) {
-  __shared__ int sse[2][kNRef];
-  int n = blockIdx.x, r = blockIdx.y, N = gridDim.x;
-  for (int q = threadIdx.x; q < 2 * kNRef; q += blockDim.x)
-    sse[q / kNRef][q % kNRef] = 0;
-  __syncthreads();
-  size_t e = (size_t)r * N + n;
-  int cy0 = coarse[e * 2], cx0 = coarse[e * 2 + 1];
-  int by = (n / Nx) * bh, bx = (n % Nx) * bw;
-  const int* ref = refs + (size_t)r * rh * w;
-  int npx = bh * bw;                        // a multiple of 32: one
-  bool shift = npx >= 4096;                 // candidate per warp pass
-  int total = 2 * kNRef * npx;
-  for (int q = threadIdx.x; q < total; q += blockDim.x) {
-    int pix = q % npx, cand = q / npx;
-    int cc = cand / kNRef, k = cand % kNRef;
-    int cy = cc == 0 ? cy0 : 0, cx = cc == 0 ? cx0 : 0;
-    int y = by + pix / bw, x = bx + pix % bw;
-    int ry = clampi(row0 + y + cy + k / 7 - kRefineR, 0, rh - 1);
-    int rx = clampi(x + cx + k % 7 - kRefineR, 0, w - 1);
-    int d = cur[y * w + x] - ref[ry * w + rx];
-    int sq = d * d;
-    if (shift) sq >>= 2;
-    int v = __reduce_add_sync(0xffffffffu, sq);
-    if ((threadIdx.x & 31) == 0) atomicAdd(&sse[cc][k], v);
+__global__ void __launch_bounds__(kRefineMaxThreads)
+me_refine_kernel(const int* __restrict__ cur, int w,
+                 const int* __restrict__ refs, int row0, int rh, int bh,
+                 int bw, int R, int N, int Nx,
+                 const int* __restrict__ coarse, const int* __restrict__ mvp,
+                 float lam, int* __restrict__ out,
+                 float* __restrict__ cost_out) {
+  extern __shared__ long long smem_ll[];
+  const int nb = refine_blocks(bw), parts = bw > 32 ? bw / 32 : 1;
+  const int wh = bh + 2 * kRefineR, ww = bw + 2 * kRefineR;
+  const int npx = bh * bw, rows = nb * 2 * wh;
+  const int lbw = __ffs(bw) - 1, lnpx = __ffs(npx) - 1;
+  long long* rowoff = smem_ll;                  // [nb][2][wh]
+  int* win = (int*)(rowoff + rows);             // [nb][2][wh][ww]
+  int* cblk = win + rows * ww;                  // [nb][bh][bw]
+  int* part = cblk + nb * npx;                  // [nb][2][49][parts]
+  float* cost = (float*)(part + nb * 2 * kNRef * parts);   // [nb][2][49]
+  int* meta = (int*)(cost + nb * 2 * kNRef);    // [nb]: r, y, x, cy, cx
+  int* rowx = meta + nb * 5;                    // [nb][2][wh]
+  const int e0 = blockIdx.x * nb, total = R * N;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+
+  if (tid < nb) {
+    int e = e0 + tid, *m = meta + tid * 5;
+    m[0] = -1;
+    if (e < total) {
+      int n = e % N;
+      m[0] = e / N;
+      m[1] = (n / Nx) * bh;
+      m[2] = (n % Nx) * bw;
+      m[3] = coarse[e * 2];
+      m[4] = coarse[e * 2 + 1];
+    }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int py = mvp[e * 2], px = mvp[e * 2 + 1];
-    int mv[2][2];
-    float cost[2];
-    for (int cc = 0; cc < 2; ++cc) {
-      int cy = cc == 0 ? cy0 : 0, cx = cc == 0 ? cx0 : 0;
-      int best = 0;
-      float best_v = 0.f;
-      for (int k = 0; k < kNRef; ++k) {
-        int my = cy + k / 7 - kRefineR, mx = cx + k % 7 - kRefineR;
-        float c = __fmaf_rn(lam, Bits::bits(4 * (mx - px), 4 * (my - py)),
-                            __int2float_rn(sse[cc][k]));
-        if (k == 0 || c < best_v) { best = k; best_v = c; }
+
+  // the current blocks, and each window row's source (the row clamped into
+  // the whole reference as the reference's edge padding gives it)
+  for (int q = tid; q < nb * npx; q += nthr) {
+    const int* m = meta + (q >> lnpx) * 5;
+    int p = q & (npx - 1);
+    if (m[0] >= 0)
+      cp_async4(cblk + q,
+                cur + (size_t)(m[1] + (p >> lbw)) * w + m[2] + (p & (bw - 1)));
+  }
+  for (int rr = tid; rr < rows; rr += nthr) {
+    int b = rr / (2 * wh), cc = (rr / wh) & 1, i = rr % wh;
+    const int* m = meta + b * 5;
+    int cy = cc == 0 ? m[3] : 0, cx = cc == 0 ? m[4] : 0;
+    rowoff[rr] = m[0] < 0 ? -1 : ((long long)m[0] * rh + clampi(
+        row0 + m[1] + cy - kRefineR + i, 0, rh - 1)) * w;
+    rowx[rr] = m[2] + cx - kRefineR;
+  }
+  __syncthreads();
+
+  // the windows, copied asynchronously: a thread per column, consecutive
+  // threads on one row
+  {
+    const int j = tid % ww, step = nthr / ww;
+    if (tid / ww < step) {
+#pragma unroll 4
+      for (int rr = tid / ww; rr < rows; rr += step) {
+        long long off = rowoff[rr];
+        if (off >= 0)
+          cp_async4(win + rr * ww + j,
+                    refs + off + clampi(rowx[rr] + j, 0, w - 1));
       }
-      mv[cc][0] = cy + best / 7 - kRefineR;
-      mv[cc][1] = cx + best % 7 - kRefineR;
-      cost[cc] = best_v;
     }
-    int pick = cost[0] <= cost[1] ? 0 : 1;
-    out[e * 2] = mv[pick][0];
-    out[e * 2 + 1] = mv[pick][1];
-    if (cost_out) cost_out[e] = cost[pick];
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // one (block, centre, dx, column) per thread: the seven dy sums of its
+  // column in registers, the window column in a seven-row ring
+  {
+    const int x = tid & (bw - 1), dx = (tid >> lbw) % kRefineN;
+    const int cc = (tid / (kRefineN * bw)) & 1, b = tid / (2 * kRefineN * bw);
+    const int* cs = cblk + b * npx + x;
+    const int* ws = win + (b * 2 + cc) * wh * ww + dx + x;
+    const bool shift = npx >= 4096;
+    unsigned acc[kRefineN];
+    int ring[kRefineN];
+#pragma unroll
+    for (int k = 0; k < kRefineN; ++k) acc[k] = 0u;
+#pragma unroll
+    for (int k = 0; k < kRefineN - 1; ++k) ring[k + 1] = ws[k * ww];
+    for (int y = 0; y < bh; ++y) {
+#pragma unroll
+      for (int k = 0; k < kRefineN - 1; ++k) ring[k] = ring[k + 1];
+      ring[kRefineN - 1] = ws[(y + kRefineN - 1) * ww];
+      const unsigned c = (unsigned)cs[y * bw];
+#pragma unroll
+      for (int dy = 0; dy < kRefineN; ++dy) {
+        unsigned d = c - (unsigned)ring[dy];
+        int sq = (int)(d * d);          // int32 d * d, wrapped
+        if (shift) sq >>= 2;
+        acc[dy] += (unsigned)sq;
+      }
+    }
+    // sum the columns of each warp (groups of min(bw, 32) lanes)
+    const int lanes = bw < 32 ? bw : 32;
+#pragma unroll
+    for (int dy = 0; dy < kRefineN; ++dy)
+      for (int off = lanes / 2; off > 0; off >>= 1)
+        acc[dy] += __shfl_xor_sync(0xffffffffu, acc[dy], off);
+    if ((x & 31) == 0)
+#pragma unroll
+      for (int dy = 0; dy < kRefineN; ++dy)
+        part[((b * 2 + cc) * kNRef + dy * kRefineN + dx) * parts + x / 32] =
+            (int)acc[dy];
+  }
+  __syncthreads();
+
+  // each candidate's cost
+  for (int q = tid; q < nb * 2 * kNRef; q += nthr) {
+    int b = q / (2 * kNRef), cc = (q / kNRef) & 1, k = q % kNRef;
+    const int* m = meta + b * 5;
+    if (m[0] < 0) continue;
+    unsigned s = 0u;
+    for (int p = 0; p < parts; ++p) s += (unsigned)part[q * parts + p];
+    int e = e0 + b;
+    int my = (cc == 0 ? m[3] : 0) + k / kRefineN - kRefineR;
+    int mx = (cc == 0 ? m[4] : 0) + k % kRefineN - kRefineR;
+    cost[q] = __fmaf_rn(lam, mv_bits<Bits>(4 * (mx - mvp[e * 2 + 1]),
+                                           4 * (my - mvp[e * 2])),
+                        __int2float_rn((int)s));
+  }
+  __syncthreads();
+
+  // the two 49-way argmins (first least), a warp per block, and the pick
+  // (the coarse centre on equal costs)
+  const int b = tid >> 5;
+  if (b < nb && meta[b * 5] >= 0) {
+    const float *c0 = cost + b * 2 * kNRef, *c1 = c0 + kNRef;
+    const int k0 = warp_argmin49(c0), k1 = warp_argmin49(c1);
+    if ((tid & 31) == 0) {
+      const int e = e0 + b, *m = meta + b * 5;
+      bool coarse_wins = c0[k0] <= c1[k1];
+      int k = coarse_wins ? k0 : k1;
+      out[e * 2] = (coarse_wins ? m[3] : 0) + k / kRefineN - kRefineR;
+      out[e * 2 + 1] = (coarse_wins ? m[4] : 0) + k % kRefineN - kRefineR;
+      if (cost_out) cost_out[e] = coarse_wins ? c0[k0] : c1[k1];
+    }
   }
 }
 
 static unsigned blocks_of(long long n) { return (unsigned)((n + 255) / 256); }
+
+template <class Bits>
+static int launch_refine(const int* cur, int w, const int* refs, int row0,
+                         int rh, int R, int bh, int bw, int Ny, int Nx,
+                         const int* coarse, const int* mvp, float lam,
+                         int* out, float* cost, cudaStream_t st) {
+  int N = Ny * Nx;
+  size_t bytes = refine_smem_bytes(bh, bw);
+  cudaError_t err = cudaFuncSetAttribute(
+      me_refine_kernel<Bits>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = (R * N + refine_blocks(bw) - 1) / refine_blocks(bw);
+  me_refine_kernel<Bits><<<ctas, refine_threads(bw), bytes, st>>>(
+      cur, w, refs, row0, rh, bh, bw, R, N, Nx, coarse, mvp, lam, out, cost);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace hm
 
@@ -271,34 +465,35 @@ extern "C" int hm_me_quad(const float* p, long long RO, int py, int px,
 extern "C" int hm_me_argmin(const float* g, int gy, int gx, int mode, int R,
                             int Ny, int Nx, const int* mvp, float lam,
                             int model, int* coarse, void* stream) {
-  if (R <= 0 || Ny <= 0 || Nx <= 0 || mode < 0 || mode > 2 || model < 0 ||
-      model > 1)
+  if (R <= 0 || R > 65535 || Ny <= 0 || Nx <= 0 || mode < 0 || mode > 2 ||
+      model < 0 || model > 1)
     return (int)cudaErrorInvalidValue;
-  unsigned nb = hm::blocks_of((long long)R * Ny * Nx);
+  dim3 grid((Ny * Nx + hm::kArgLanes - 1) / hm::kArgLanes, R);
+  dim3 block(hm::kArgLanes, hm::kArgGroups);
   if (model == 0)
-    hm::me_argmin_kernel<hm::MvdBins><<<nb, 256, 0, (cudaStream_t)stream>>>(
-        g, gy, gx, mode, R, Ny, Nx, mvp, lam, coarse);
+    hm::me_argmin_kernel<hm::MvdBins><<<grid, block, 0, (cudaStream_t)stream>>>(
+        g, gy, gx, mode, Ny, Nx, mvp, lam, coarse);
   else
-    hm::me_argmin_kernel<hm::MvLog><<<nb, 256, 0, (cudaStream_t)stream>>>(
-        g, gy, gx, mode, R, Ny, Nx, mvp, lam, coarse);
+    hm::me_argmin_kernel<hm::MvLog><<<grid, block, 0, (cudaStream_t)stream>>>(
+        g, gy, gx, mode, Ny, Nx, mvp, lam, coarse);
   return (int)cudaGetLastError();
 }
 
 // model as hm_me_argmin; cost may be null; cur: the band of rows row0.. of
-// the picture, refs: (R, rh, w) whole references
+// the picture, refs: (R, rh, w) whole references; bh, bw in {8, 16, 32, 64}
 extern "C" int hm_me_refine(const int* cur, int w, const int* refs, int row0,
                             int rh, int R, int bh, int bw, int Ny, int Nx,
                             const int* coarse, const int* mvp, float lam,
                             int model, int* out, float* cost, void* stream) {
-  if (R <= 0 || Ny <= 0 || Nx <= 0 || (bh * bw) % 32 != 0 || model < 0 ||
-      model > 1 || row0 < 0 || row0 + Ny * bh > rh)
+  auto size_ok = [](int v) { return v == 8 || v == 16 || v == 32 || v == 64; };
+  if (R <= 0 || Ny <= 0 || Nx <= 0 || !size_ok(bh) || !size_ok(bw) ||
+      (long long)R * Ny * Nx > 0x7fffffff || model < 0 || model > 1 ||
+      row0 < 0 || row0 + Ny * bh > rh)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(Ny * Nx, R);
-  if (model == 0)
-    hm::me_refine_kernel<hm::MvdBins><<<grid, 128, 0, (cudaStream_t)stream>>>(
-        cur, w, refs, row0, rh, bh, bw, Nx, coarse, mvp, lam, out, cost);
-  else
-    hm::me_refine_kernel<hm::MvLog><<<grid, 128, 0, (cudaStream_t)stream>>>(
-        cur, w, refs, row0, rh, bh, bw, Nx, coarse, mvp, lam, out, cost);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return model == 0
+      ? hm::launch_refine<hm::MvdBins>(cur, w, refs, row0, rh, R, bh, bw, Ny,
+                                       Nx, coarse, mvp, lam, out, cost, st)
+      : hm::launch_refine<hm::MvLog>(cur, w, refs, row0, rh, R, bh, bw, Ny,
+                                     Nx, coarse, mvp, lam, out, cost, st);
 }

@@ -24,18 +24,31 @@
 // pair refined by K7 where strictly cheaper, and each rect PU from the
 // cheaper list.  It writes one record of REC_FIELDS and one cost per CU.
 //
-// What bounds them: integer ALU work.  K7 does 49 8x8 Hadamards per
-// (reference, 8x8 tile); K8 four (P) or eight (B) candidate SATDs and up to
-// three transform trials per CU.  Design, simple first: K7 is one CTA per
-// (block, reference) with one 8x8 tile of one candidate per thread and
-// integer atomics into 49 shared sums; K8 is one CTA per CU reading the
-// neighbours' K7 results from global memory, with the trial's transforms
-// in shared memory (intra_common.cuh's chain, one TU at a time).  Float
-// steps follow XLA:CPU's rounding of the reference programs (file built
-// with --fmad=false): fused multiply-adds where XLA fuses (`__fmaf_rn`: the
-// refinement, list-pick, bi and trial costs), a separately rounded scalar
-// product in the merge and intra-extra costs; argmins keep the lowest
-// index, the merge update is a strict <.
+// What bounds them on the H100.  K7 does 49 8x8 Hadamards (~600 int32
+// operations each) per (reference, 8x8 tile) and reads, per block, a
+// (16, bh + 1, bw + 1) window of phase planes (20x the samples of an 8x8
+// block, 4x those of a 64x64); K8 four (P) or eight (B) candidate SATDs
+// and up to three transform trials per CU: integer ALU work.  K7 once read
+// each candidate's 64 target and 64 prediction samples from global memory
+// with a row stride (and re-formed the bi target for every candidate), and
+// left 79 of 128 threads idle on an 8x8 block.  Now a CTA of 8 x 49
+// threads stages, per block, the one window that holds all 49 candidates
+// and the int32 target, formed once, in shared memory (172 KB for 64x64,
+// opted in as dynamic shared memory).  The window moves as the aligned
+// 16-byte chunks that hold its rows, by asynchronous copies (cp.async), so
+// that all of a CTA's bytes are in flight at once and no register holds
+// them.  A thread owns one candidate and 1-8 of its tiles and sums their
+// SATDs in a register; small blocks pack eight (8x8) to two (16x16) to a
+// CTA; a warp per block takes the 49-way argmin.  K8 is one CTA per CU
+// reading the neighbours' K7 results from global memory, with the trial's
+// transforms in shared memory (intra_common.cuh's chain, one TU at a
+// time).  Float steps follow XLA:CPU's rounding of the reference programs
+// (file built with --fmad=false): fused multiply-adds where XLA fuses
+// (`__fmaf_rn`: the refinement, list-pick, bi and trial costs) over
+// __int2float_rn of the integer SATD sums (any order: integers), a
+// separately rounded scalar product in the merge and intra-extra costs;
+// argmins keep the lowest index (K7's warp argmin compares (cost, index)
+// pairs), the merge update is a strict <.
 #include "intra_common.cuh"
 
 namespace hm {
@@ -63,76 +76,167 @@ __device__ __forceinline__ PredAt pred_at(const short* sub, int Hp, int Wp,
 // K7
 // ---------------------------------------------------------------------------
 
-// grid (N, Rb): block n of batch entry rb; its reference is uref[n] when
-// given, else rb.  mv: (Rb, N, 2) full-pel MV, or, with qstart, a
-// quarter-pel MV whose window centres on mv >> 2 (arithmetic: floors toward
-// -inf); pred4: (Rb, N, 2) quarter-pel MVD anchor.  The block is matched
-// against the current plane, or, when o_uref is given (the bi refinement),
-// against the bi target 2 * orig - pred(o_uref[n], o_mv4[n]).
+// The CTA: frac_blocks(ntiles) blocks, each 49 candidates x frac_tpc(ntiles)
+// threads (8 x 49 threads in all); a thread sums the SATDs of the tiles
+// tpc apart of one candidate.
+__host__ __device__ constexpr int frac_tpc(int ntiles) {
+  return ntiles < 8 ? ntiles : 8;
+}
+__host__ __device__ constexpr int frac_blocks(int ntiles) {
+  return 8 / frac_tpc(ntiles);
+}
+constexpr int kFracThreads = 8 * 49;
+
+// shared memory of one CTA in bytes: the windows, each row the 16-byte
+// aligned chunks that hold its bw + 1 samples; the int32 targets; the rows'
+// first samples in the windows; the per-thread sums, the 49 SATDs and costs
+// per block; the blocks' (reference, my, mx, anchor y, anchor x)
+__host__ __device__ inline size_t frac_smem_bytes(int bh, int bw) {
+  size_t nt = (bh / 8) * (bw / 8), nb = frac_blocks(nt);
+  size_t rows = nb * 16 * (bh + 1), nch = bw / 8 + 1;
+  return 16 * rows * nch +
+         sizeof(int) * (nb * bh * bw + rows + nb * 49 * frac_tpc(nt) +
+                        nb * 49 * 2 + nb * 5);
+}
+
+// blocks e = rb * N + n: block n of batch entry rb; its reference is
+// uref[n] when given, else rb.  mv: (Rb, N, 2) full-pel MV, or, with
+// qstart, a quarter-pel MV whose window centres on mv >> 2 (arithmetic:
+// floors toward -inf); pred4: (Rb, N, 2) quarter-pel MVD anchor.  The block
+// is matched against the current plane, or, when o_uref is given (the bi
+// refinement), against the bi target 2 * orig - pred(o_uref[n], o_mv4[n]).
+// bh, bw: powers of two from 8 to 64.
 //
-// The bi target is formed here from the other list's hypothesis, not
-// materialised by the caller: a materialised target would be one (N, s, s)
-// int32 tensor written and read back per pass plus a gather launch, while
-// here it costs one more int16 read of the phase planes per sample (the
-// same planes the candidates read, so mostly cache hits).  Its range is
-// [-maxv, 2 * maxv] and a difference to a prediction [-2 * maxv, 2 * maxv]:
-// int32 throughout.
-__global__ void frac_refine_kernel(const short* __restrict__ sub, int Hp,
-                                   int Wp, const int* __restrict__ cur, int w,
-                                   int bh, int bw, int Nx,
-                                   const int* __restrict__ mv, int qstart,
-                                   const int* __restrict__ pred4,
-                                   const int* __restrict__ uref,
-                                   const int* __restrict__ o_uref,
-                                   const int* __restrict__ o_mv4, float lam,
-                                   int* __restrict__ mv4,
-                                   float* __restrict__ satd_out) {
-  __shared__ int satd[49];
-  int n = blockIdx.x, N = gridDim.x;
-  size_t e = (size_t)blockIdx.y * N + n;
-  int ref = uref ? uref[n] : blockIdx.y;
-  for (int q = threadIdx.x; q < 49; q += blockDim.x) satd[q] = 0;
-  __syncthreads();
-  int by = (n / Nx) * bh, bx = (n % Nx) * bw;
-  int my = mv[e * 2], mx = mv[e * 2 + 1];
-  if (qstart) {
-    my >>= 2;
-    mx >>= 2;
-  }
-  const bool bi = o_uref != nullptr;
-  PredAt po{};
-  if (bi) po = pred_at(sub, Hp, Wp, o_uref[n], o_mv4[n * 2], o_mv4[n * 2 + 1], by, bx);
-  int tw = bw / 8, ntiles = (bh / 8) * tw;
-  for (int t = threadIdx.x; t < 49 * ntiles; t += blockDim.x) {
-    int k = t / ntiles, tile = t % ntiles;
-    int qy = k / 7 - 3, qx = k % 7 - 3;
-    PredAt p = pred_at(sub, Hp, Wp, ref, 4 * my + qy, 4 * mx + qx, by, bx);
-    int ty = (tile / tw) * 8, tx = (tile % tw) * 8;
-    int v[64];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        int o = cur[(size_t)(by + ty + i) * w + bx + tx + j];
-        if (bi) o = 2 * o - po.at(ty + i, tx + j);
-        v[i * 8 + j] = o - p.at(ty + i, tx + j);
-      }
-    atomicAdd(&satd[k], satd8x8(v));
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int ay = pred4[e * 2], ax = pred4[e * 2 + 1];
-    int best = 0;
-    float best_v = 0.f;
-    for (int k = 0; k < 49; ++k) {
-      int m4y = 4 * my + k / 7 - 3, m4x = 4 * mx + k % 7 - 3;
-      float c = __fmaf_rn(lam, mvd_bits(m4x - ax, m4y - ay),
-                          __int2float_rn(satd[k]));
-      if (k == 0 || c < best_v) { best = k; best_v = c; }
+// The 49 candidates 4 * mv + (qy, qx), qy, qx in -3..3, read the phase
+// plane (qy & 3, qx & 3) at the integer offset (qy >> 2, qx >> 2) in
+// {-1, 0}: all of them lie in the (16, bh + 1, bw + 1) window of the 16
+// planes at (mv - 1).  The window, copied asynchronously as the 16-byte
+// chunks that hold each of its rows (bw / 8 + 1 per row), and the target
+// (the block, or the bi target formed once from the other list's
+// hypothesis: range [-maxv, 2 * maxv], int32) are staged in shared memory,
+// and every Hadamard reads them there.
+__global__ void __launch_bounds__(kFracThreads, 2)
+frac_refine_kernel(const short* __restrict__ sub, int Hp, int Wp,
+                   const int* __restrict__ cur, int w, int bh, int bw,
+                   int Rb, int N, int Nx, const int* __restrict__ mv,
+                   int qstart, const int* __restrict__ pred4,
+                   const int* __restrict__ uref,
+                   const int* __restrict__ o_uref,
+                   const int* __restrict__ o_mv4, float lam,
+                   int* __restrict__ mv4, float* __restrict__ satd_out) {
+  extern __shared__ uint4 smem_u4[];
+  const int ltw = __ffs(bw) - 4, ntiles = (bh / 8) << ltw;
+  const int tpc = frac_tpc(ntiles), nb = frac_blocks(ntiles);
+  const int ph = bh + 1, nch = bw / 8 + 1, rows = nb * 16 * ph;
+  const int lbw = __ffs(bw) - 1, npx = bh * bw, lnpx = __ffs(npx) - 1;
+  uint4* win = smem_u4;                         // [nb][16][ph][nch]
+  int* tgt = (int*)(win + rows * nch);          // [nb][bh][bw]
+  int* rowsm = tgt + nb * npx;                  // [nb][16][ph]
+  int* part = rowsm + rows;                     // [nb][49][tpc]
+  int* satd = part + nb * 49 * tpc;             // [nb][49]
+  float* cost = (float*)(satd + nb * 49);       // [nb][49]
+  int* meta = (int*)(cost + nb * 49);           // [nb]: ref, my, mx, ay, ax
+  const short* planes = (const short*)win;
+  const uint4* sub4 = (const uint4*)((uintptr_t)sub & ~(uintptr_t)15);
+  const int sub_sh = (int)((uintptr_t)sub & 15) >> 1;
+  const int e0 = blockIdx.x * nb, total = Rb * N;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+
+  if (tid < nb) {
+    int e = e0 + tid, *m = meta + tid * 5;
+    m[0] = -1;
+    if (e < total) {
+      int n = e % N, my = mv[e * 2], mx = mv[e * 2 + 1];
+      m[0] = uref ? uref[n] : e / N;
+      m[1] = qstart ? my >> 2 : my;
+      m[2] = qstart ? mx >> 2 : mx;
+      m[3] = pred4[e * 2];
+      m[4] = pred4[e * 2 + 1];
     }
-    mv4[e * 2] = 4 * my + best / 7 - 3;
-    mv4[e * 2 + 1] = 4 * mx + best % 7 - 3;
-    satd_out[e] = __int2float_rn(satd[best]);
+  }
+  // the window rows: a thread per row copies its chunks and notes where its
+  // first sample lands
+  for (int rr = tid; rr < rows; rr += nthr) {
+    int b = rr / (16 * ph), pl = (rr / ph) & 15, i = rr % ph, e = e0 + b;
+    if (e >= total) continue;
+    int n = e % N, my = mv[e * 2], mx = mv[e * 2 + 1];
+    if (qstart) {
+      my >>= 2;
+      mx >>= 2;
+    }
+    int ref = uref ? uref[n] : e / N;
+    long long a = sub_sh + ((long long)(ref * 16 + pl) * Hp + (n / Nx) * bh +
+                            my - 1 + kMargin + i) * Wp +
+                  (n % Nx) * bw + mx - 1 + kMargin;
+    rowsm[rr] = rr * nch * 8 + (int)(a & 7);
+    const uint4* src = sub4 + (a >> 3);
+    for (int c = 0; c < nch; ++c) cp_async16(win + rr * nch + c, src + c);
+  }
+  // the targets
+  for (int q = tid; q < nb * npx; q += nthr) {
+    int e = e0 + (q >> lnpx);
+    if (e >= total) continue;
+    int n = e % N, by = (n / Nx) * bh, bx = (n % Nx) * bw;
+    int i = (q & (npx - 1)) >> lbw, j = q & (bw - 1);
+    int o = cur[(size_t)(by + i) * w + bx + j];
+    if (o_uref)
+      o = 2 * o - pred_at(sub, Hp, Wp, o_uref[n], o_mv4[n * 2],
+                          o_mv4[n * 2 + 1], by, bx).at(i, j);
+    tgt[q] = o;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // one candidate's tiles g, g + tpc, ... per thread, summed in a register
+  {
+    const int b = tid / (49 * tpc), k = (tid / tpc) % 49, g = tid % tpc;
+    if (b < nb && meta[b * 5] >= 0) {
+      const int qy = k / 7 - 3, qx = k % 7 - 3;
+      const int* rs = rowsm + (b * 16 + (qy & 3) * 4 + (qx & 3)) * ph +
+                      1 + (qy >> 2);
+      const int ox = 1 + (qx >> 2);
+      const int* tt = tgt + b * npx;
+      int sum = 0;
+      for (int tile = g; tile < ntiles; tile += tpc) {
+        int ty = (tile >> ltw) * 8, tx = (tile & ((1 << ltw) - 1)) * 8;
+        int v[64];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int4* t4 = (const int4*)(tt + (ty + i) * bw + tx);
+          int4 lo = t4[0], hi = t4[1];
+          const short* pp = planes + rs[ty + i] + ox + tx;
+          int t[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[i * 8 + j] = t[j] - pp[j];
+        }
+        sum += satd8x8(v);
+      }
+      part[tid] = sum;
+    }
+  }
+  __syncthreads();
+
+  for (int q = tid; q < nb * 49; q += nthr) {
+    const int b = q / 49, k = q % 49, *m = meta + b * 5;
+    if (m[0] < 0) continue;
+    int s = 0;
+    for (int g = 0; g < tpc; ++g) s += part[q * tpc + g];
+    int m4y = 4 * m[1] + k / 7 - 3, m4x = 4 * m[2] + k % 7 - 3;
+    satd[q] = s;
+    cost[q] = __fmaf_rn(lam, mvd_bits(m4x - m[4], m4y - m[3]),
+                        __int2float_rn(s));
+  }
+  __syncthreads();
+
+  // the 49-way argmin (the first least cost), a warp per block
+  const int b = tid >> 5;
+  if (b < nb && meta[b * 5] >= 0) {
+    const int best = warp_argmin49(cost + b * 49), e = e0 + b;
+    if ((tid & 31) == 0) {
+      mv4[e * 2] = 4 * meta[b * 5 + 1] + best / 7 - 3;
+      mv4[e * 2 + 1] = 4 * meta[b * 5 + 2] + best % 7 - 3;
+      satd_out[e] = __int2float_rn(satd[b * 49 + best]);
+    }
   }
 }
 
@@ -512,13 +616,21 @@ extern "C" int hm_frac_refine(const short* sub, int Hp, int Wp, const int* cur,
                               const int* uref, const int* o_uref,
                               const int* o_mv4, float lam, int* mv4,
                               float* satd, void* stream) {
-  if (Ny <= 0 || Nx <= 0 || Rb <= 0 || bh % 8 || bw % 8 ||
-      (o_uref && (!uref || !o_mv4)))
+  auto size_ok = [](int v) { return v == 8 || v == 16 || v == 32 || v == 64; };
+  if (Ny <= 0 || Nx <= 0 || Rb <= 0 || !size_ok(bh) || !size_ok(bw) ||
+      (long long)Rb * Ny * Nx > 0x7fffffff || (o_uref && (!uref || !o_mv4)))
     return (int)cudaErrorInvalidValue;
-  dim3 grid(Ny * Nx, Rb);
-  hm::frac_refine_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      sub, Hp, Wp, cur, w, bh, bw, Nx, mv, qstart, pred4, uref, o_uref, o_mv4,
-      lam, mv4, satd);
+  size_t bytes = hm::frac_smem_bytes(bh, bw);
+  cudaError_t err = cudaFuncSetAttribute(
+      hm::frac_refine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  int N = Ny * Nx, nb = hm::frac_blocks((bh / 8) * (bw / 8));
+  int ctas = (Rb * N + nb - 1) / nb;
+  hm::frac_refine_kernel<<<ctas, hm::kFracThreads, bytes,
+                           (cudaStream_t)stream>>>(
+      sub, Hp, Wp, cur, w, bh, bw, Rb, N, Nx, mv, qstart, pred4, uref, o_uref,
+      o_mv4, lam, mv4, satd);
   return (int)cudaGetLastError();
 }
 

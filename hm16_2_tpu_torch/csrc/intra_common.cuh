@@ -319,4 +319,33 @@ __device__ __forceinline__ float mvd_bits(int dx, int dy) {
   return __fadd_rn(mvd_comp_bits(dx), mvd_comp_bits(dy));
 }
 
+// asynchronous copies of 4 / 16 bytes from global to shared memory (16:
+// both addresses 16-byte aligned), and the wait for all of this thread's
+// copies; a __syncthreads() after the wait publishes them to the CTA
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+      (unsigned)__cvta_generic_to_shared(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+      (unsigned)__cvta_generic_to_shared(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the first least of the 49 costs c[0..48] (the lowest index among equal
+// costs, as jnp.argmin), on every lane of a full warp
+__device__ __forceinline__ int warp_argmin49(const float* c) {
+  int lane = threadIdx.x & 31, k = lane;
+  float v = c[lane];
+  if (lane + 32 < 49 && c[lane + 32] < v) { v = c[lane + 32]; k = lane + 32; }
+  for (int off = 16; off > 0; off >>= 1) {
+    float vo = __shfl_xor_sync(0xffffffffu, v, off);
+    int ko = __shfl_xor_sync(0xffffffffu, k, off);
+    if (vo < v || (vo == v && ko < k)) { v = vo; k = ko; }
+  }
+  return k;
+}
+
 }  // namespace hm

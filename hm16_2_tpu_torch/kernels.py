@@ -61,7 +61,7 @@ _SOURCES = ("ref_buffers.cu", "intra_rd.cu", "plan_dp.cu", "inter_me.cu",
             "subpel.cu", "inter_rd.cu")
 _HEADERS = ("intra_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 LAUNCHES = {"ref_buffers": 0, "intra_size_rd": 0, "intra_cand_rd": 0,
             "plan_dp": 0, "inter_me": 0, "subpel_planes": 0, "inter_uni": 0,
@@ -157,7 +157,8 @@ def _library_path():
 def build():
     """Compile the kernels if the cached library is missing, one nvcc per
     source, all at once, then link; returns (library path, seconds spent
-    compiling)."""
+    compiling).  ptxas's report of each kernel (registers, shared memory,
+    spills) is kept beside the library (`resource_usage`)."""
     out = _library_path()
     if os.path.exists(out):
         return out, 0.0
@@ -169,11 +170,14 @@ def build():
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
              for i, src in enumerate(_SOURCES)]
-    errs = []
-    for pr in procs:
+    errs, report = [], []
+    for src, pr in zip(_SOURCES, procs):
         o, e = pr.communicate()
         if pr.returncode != 0:
             errs.append(o + e)
+        report.append(f"== {src}\n{o}{e}")
+    with open(out + ".ptxas.txt", "w") as f:
+        f.write("".join(report))
     objs = [f"{tmp}.{i}.o" for i in range(len(_SOURCES))]
     if not errs:
         r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp,
@@ -187,6 +191,12 @@ def build():
         raise RuntimeError("nvcc failed:\n" + "\n".join(errs))
     os.replace(tmp, out)
     return out, time.perf_counter() - t0
+
+
+def resource_usage():
+    """ptxas's report of the built library's kernels (`build()` first)."""
+    with open(_library_path() + ".ptxas.txt") as f:
+        return f.read()
 
 
 def _load():

@@ -85,6 +85,16 @@ def test_b_kernels_equal_plain(cuda, lists):
 
 
 @pytest.mark.gpu
+def test_me_edges_equal_plain(cuda):
+    """K5 (both bit models, whole and band) and K7 (uni and bi) equal their
+    plain versions bit for bit on the edge inputs of the redesign (flat
+    pictures, ramps, 12-bit noise, far priors, a band) and on a flat
+    1080p picture with four references."""
+    import chip_smoke
+    assert chip_smoke.check_me_edges(cuda) > 0
+
+
+@pytest.mark.gpu
 def test_ldp_on_card_equals_cpu(cuda):
     """A low-delay P stream (IDR + one GOP of four P pictures) on the card
     equals the CPU plain path; every kernel of the path was launched."""
