@@ -11,7 +11,10 @@ of a 1080p picture without a plan (four references, and the one reference
 of the per-CU search's IPPP pictures, a non-zero prior), and holds K5 and
 K7 to theirs on the edge inputs their invariants rest on (flat pictures,
 ramps, 12-bit noise, priors of +-70, a row band; a flat 1080p picture;
-`check_me_edges`), then drives the port's paths:
+`check_me_edges`) and K6 and K8 to theirs on the redesign's edge inputs
+(zero, maximum, checkerboard and edge-line references at 8-12 bits; flat,
+one-CTU and capped-prior P and B plans; 10- and 12-bit references and flat
+P and B plans at 1080p; `check_k6_k8_edges`), then drives the port's paths:
 
 - all-intra (HM's common-test All Intra Main configuration: QP 32, 8-bit
   4:2:0, deblocking, SAO, MD5 picture hash) over three 1080p frames through
@@ -158,6 +161,7 @@ def _case(stats, reps):
         b_ms = (_nbytes(ins) + _nbytes(got)) / HBM_BYTES_S * 1e3
         o_ms = ops / PEAK_OPS_S * 1e3
         st = stats[kernel]
+        st.setdefault("cases", {})[label] = (ms, pms, max(b_ms, o_ms))
         st["err"] = max(st["err"], err)
         st["ms"] += ms
         st["plain_ms"] += pms
@@ -664,6 +668,215 @@ def check_me_edges(dev, size=(64, 128), big=(1080, 1920)):
     return n_eq
 
 
+# the inputs on which the K6 / K8 redesign's invariants rest
+K6_EDGE_CONTENTS = ("zero", "max", "checker", "edge_lines")
+K6_EDGE_SIZES = ((8, 8), (24, 40), (72, 136))
+PLAN_EDGE_CASES = ("flat", "one_ctu", "far10")
+
+
+def k6_edge_refs(content, bd, h, w, R):
+    """(R, h, w) int32 references of one K6 edge case at bit depth bd:
+    "zero"; "max" (every sample at 2^bd - 1); "checker" (a 0 / max
+    checkerboard, shifted by one per reference: the filters' largest sums
+    of either sign, the int32 headroom's extremes); "edge_lines" (zero but
+    one bright column and one bright row at the picture's edges, left and
+    top for even references, right and bottom for odd ones, read again
+    and again through the clamped padding)."""
+    maxv = (1 << bd) - 1
+    r, y, x = np.ogrid[:R, :h, :w]
+    if content == "zero":
+        a = np.zeros((R, h, w))
+    elif content == "max":
+        a = np.full((R, h, w), maxv)
+    elif content == "checker":
+        a = ((r + y + x) % 2) * maxv
+    else:
+        a = np.zeros((R, h, w))
+        for k in range(R):
+            a[k, :, 0 if k % 2 == 0 else w - 1] = maxv
+            a[k, 0 if k % 2 == 0 else h - 1, :] = maxv
+    return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def plan_edge_args(case, is_b, size=None):
+    """Seeded numpy arguments of the P or B plan (`inter_plan._plan_device`,
+    four unique references) in one K8 edge case: "flat" (10-bit, 72x136,
+    every picture at 512: every SATD is 0, so the bits decide and equal
+    costs meet first-least, e.g. B's merge candidates 3-5); "one_ctu"
+    (8-bit moving content, 64x64: one CTU, so at s = 64 every rolled
+    neighbour is invalid); "far10" (10-bit moving content, 72x136, priors
+    of +-4400 or +-4800 64ths of a pel per POC: every per-reference prior
+    at the +-69 full-pel cap).  P: QP 32, the current picture after
+    references at POC distances 1-4; B: QP 34, between two past and two
+    future references (list 0 the past, list 1 the future).  size (h, w)
+    overrides the picture size."""
+    bd, (h, w) = {"flat": (10, (72, 136)), "one_ctu": (8, (64, 64)),
+                  "far10": (10, (72, 136))}[case]
+    h, w = size or (h, w)
+    rng = np.random.default_rng(51 + PLAN_EDGE_CASES.index(case) + 7 * is_b)
+    if case == "flat":
+        frames = np.full((5, h, w), 512)
+    else:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from make_fixtures import make_yuv
+        frames = np.stack([f[0] for f in make_yuv(
+            w, h, 5, seed=51 + PLAN_EDGE_CASES.index(case), bits=bd)])
+    if is_b:
+        cur, order, dists = frames[2], (1, 0, 3, 4), (1, 2, -1, -2)
+        maps, nrefs, qp = ([0, 1, 0, 0], [2, 3, 0, 0]), (2, 2), QP + 2
+    else:
+        cur, order, dists = frames[4], (3, 2, 1, 0), (1, 2, 3, 4)
+        maps, nrefs, qp = ([0, 1, 2, 3], None), (4, 0), QP
+    shape = (h // 8, w // 8, 2)
+    mvn16 = rng.choice([-4800, -4400, 4400, 4800], shape) if \
+        case == "far10" else rng.integers(-160, 161, shape)
+    lam = float(np.float32(0.4624 * 2.0 ** ((qp - 12) / 3.0)))
+    i32 = lambda a: None if a is None else np.ascontiguousarray(
+        a, dtype=np.int32)
+    return {"cur": i32(cur), "refs": i32(frames[list(order)]),
+            "mvn16": i32(mvn16), "dists": i32(dists), "lam": lam,
+            "lams": float(np.float32(np.sqrt(lam))),
+            "qp": qp + 6 * (bd - 8), "map0": i32(maps[0]), "nref0": nrefs[0],
+            "map1": i32(maps[1]), "nref1": nrefs[1], "h": h, "w": w,
+            "bd": bd, "is_b": is_b}
+
+
+@contextlib.contextmanager
+def _held_to_plain(check):
+    """Inside the block the plan's K6 and K8 calls run the kernel and then
+    the plain version on the same inputs, and check(label, got, want)."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import inter_plan as P
+    saved = P.subpel_planes, P.cu_rd, P.cu_rd_b
+
+    def held(label, kern, plain, size_at):
+        def run(*a):
+            got = kern(*a)
+            check(label + (f" s={a[size_at]}" if size_at else ""), got,
+                  plain(*a))
+            return got
+        return run
+
+    P.subpel_planes = held("K6", K.subpel_planes, P._subpel_planes_plain,
+                           None)
+    P.cu_rd = held("K8 P", K.cu_rd, P._cu_rd_plain, 2)
+    P.cu_rd_b = held("K8 B", K.cu_rd_b, P._cu_rd_b_plain, 2)
+    try:
+        yield
+    finally:
+        P.subpel_planes, P.cu_rd, P.cu_rd_b = saved
+
+
+def run_plan(args, dev):
+    """The port's P or B plan on `dev` from plan_edge_args' arguments."""
+    from hm16_2_tpu_torch.encode import inter_plan as P
+    t = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    return P._plan_device(
+        t(args["cur"]), t(args["refs"]), t(args["mvn16"]), t(args["dists"]),
+        args["lam"], args["lams"], args["qp"], t(args["map0"]),
+        args["nref0"], t(args["map1"]), args["nref1"], h=args["h"],
+        w=args["w"], bd=args["bd"], nmerge=5, is_b=args["is_b"])
+
+
+def check_k6_k8_edges(dev, big=(1080, 1920)):
+    """K6 and K8 (P and B, every CU size) on the card against their plain
+    versions on the same card, every output equal bit for bit: K6 on
+    k6_edge_refs (every content at bit depths 8, 10 and 12, sizes
+    K6_EDGE_SIZES, one and three references) and on 10- and 12-bit noise
+    at `big` with four references; K6 and K8 inside the P and B plans of
+    plan_edge_args (the CPU tests hold the plain versions to the JAX
+    package on the same inputs), and of a flat picture at `big` with four
+    references.  Raises on the first difference; times nothing."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import inter_plan as P
+    n_eq = 0
+
+    def same(label, got, want):
+        nonlocal n_eq
+        _compare(f"edge {label}", _flat(got), _flat(want))
+        n_eq += 1
+
+    for content in K6_EDGE_CONTENTS:
+        for bd in (8, 10, 12):
+            for h, w in K6_EDGE_SIZES:
+                for R in (1, 3):
+                    refs = torch.from_numpy(k6_edge_refs(content, bd, h, w,
+                                                         R)).to(dev)
+                    same(f"K6 {content} {bd}-bit {w}x{h} R={R}",
+                         K.subpel_planes(refs, bd, h, w),
+                         P._subpel_planes_plain(refs, bd, h, w))
+    rng = np.random.default_rng(61)
+    for bd in (10, 12):
+        refs = torch.from_numpy(rng.integers(0, 1 << bd, (4,) + big)
+                                .astype(np.int32)).to(dev)
+        same(f"K6 noise {bd}-bit {big[1]}x{big[0]} R=4",
+             K.subpel_planes(refs, bd, *big), P._subpel_planes_plain(
+                 refs, bd, *big))
+        del refs
+    plans = [(c, b, None) for c in PLAN_EDGE_CASES for b in (False, True)]
+    plans += [("flat", b, big) for b in (False, True)]
+    for case, is_b, size in plans:
+        args = plan_edge_args(case, is_b, size)
+        label = f"{case} {'B' if is_b else 'P'} {args['w']}x{args['h']}"
+        with _held_to_plain(lambda lb, g, w: same(f"{label} {lb}", g, w)):
+            run_plan(args, dev)
+    print(f"K6/K8 edge inputs (K6 {', '.join(K6_EDGE_CONTENTS)} at 8-12 "
+          f"bits; plans {', '.join(PLAN_EDGE_CASES)}, P and B; K6 10/12-bit "
+          f"noise and flat P/B plans at {big[1]}x{big[0]}, 4 refs): {n_eq} "
+          f"kernel outputs equal their plain versions  [{CARD}]", flush=True)
+    return n_eq
+
+
+def k6_conv_yardstick(refs, reps=5):
+    """ms of torch.nn.functional.conv2d, float32 with TF32 off, over the
+    edge-padded 8-bit references (R, h, w) with the 16 outer-product 8x8
+    filters of the quarter-pel phases: the pre-rounding sums of K6 at 8
+    bits (below 2^24, so exact in float32), a yardstick of the arithmetic,
+    not the same function.  The port never calls it."""
+    from hm16_2_tpu_torch.encode.inter_plan import LUMA_FILTER, MARGIN
+    R, h, w = refs.shape
+    iy = torch.clamp(torch.arange(-(MARGIN + 3), h + MARGIN + 5,
+                                  device=refs.device), 0, h - 1)
+    ix = torch.clamp(torch.arange(-(MARGIN + 3), w + MARGIN + 5,
+                                  device=refs.device), 0, w - 1)
+    x = refs[:, iy][:, :, ix].to(torch.float32)[:, None].contiguous()
+    taps = torch.tensor(LUMA_FILTER, dtype=torch.float32, device=refs.device)
+    wt = (taps[:, None, :, None] * taps[None, :, None, :]).reshape(16, 1, 8, 8)
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _cuda_ms(lambda: torch.nn.functional.conv2d(x, wt), reps)
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def report_k6_k8(stats, refs8):
+    """Print K8's time by CU size and mode, K7's q-pel refinement apart
+    from its list picks, and the conv2d yardstick beside K6 (refs8: the
+    four 8-bit references of check_inter_kernels), from the cases of
+    check_inter_kernels and check_b_kernels in `stats`."""
+    cases = {k: stats[k]["cases"] for k in ("inter_cu_rd", "inter_cu_rd_b",
+                                            "inter_uni")}
+    print("K8 ms by CU size: P " + ", ".join(
+        f"s={s} {cases['inter_cu_rd'][f'CU pricing s={s}'][0]:.3f}"
+        for s in (8, 16, 32, 64)) + "; B " + ", ".join(
+        f"s={s} {cases['inter_cu_rd_b'][f'B CU pricing s={s}'][0]:.3f}"
+        for s in (8, 16, 32, 64)) + f"  [{CARD}]", flush=True)
+    qpel = sum(v[0] for k, v in cases["inter_uni"].items()
+               if k.startswith("q-pel"))
+    picks = {m: sum(v[0] for k, v in cases["inter_uni"].items()
+                    if "pick" in k and k.startswith("list pick") == (m == "P"))
+             for m in ("P", "B")}
+    print(f"K7 ms: q-pel refinement {qpel:.3f} (ten shapes); list picks "
+          f"P {picks['P']:.3f}, B {picks['B']:.3f} (both lists)  [{CARD}]",
+          flush=True)
+    h, w = refs8.shape[1:]
+    print(f"K6 yardstick, not the port: conv2d float32 (TF32 off) with 16 "
+          f"8x8 filters over 4 edge-padded 8-bit {w}x{h} refs "
+          f"{k6_conv_yardstick(refs8):.3f} ms; K6 "
+          f"{stats['subpel_planes']['ms']:.3f} ms  [{CARD}]", flush=True)
+
+
 def _kernel_split(label, fn, top=4):
     """Run fn under torch.profiler (device activity) and print its device
     time by kernel, the `top` largest."""
@@ -916,12 +1129,15 @@ def _env(name, value):
             os.environ[name] = old
 
 
-# K5's and K7's kernels by the names the profiler gives them
-K5_K7_SPLIT = {"K5 refinement": ("me_refine_kernel",),
-               "K5 coarse argmin": ("me_argmin_kernel",),
-               "K5 rest (downsample, coarse grid, pyramid)": (
-                   "me_down_kernel", "me_coarse8_kernel", "me_quad_kernel"),
-               "K7 frac_refine": ("frac_refine_kernel",)}
+# K5-K8's kernels by the names the profiler gives them
+KERNEL_SPLIT = {"K5 refinement": ("me_refine_kernel",),
+                "K5 coarse argmin": ("me_argmin_kernel",),
+                "K5 rest (downsample, coarse grid, pyramid)": (
+                    "me_down_kernel", "me_coarse8_kernel", "me_quad_kernel"),
+                "K6 subpel": ("subpel_kernel",),
+                "K7 frac_refine": ("frac_refine_kernel",),
+                "K7 list picks": ("uni_select_kernel",),
+                "K8 CU pricing": ("cu_rd_kernel",)}
 
 
 def _timed_pictures(enc, code, label, top):
@@ -946,9 +1162,9 @@ def _timed_pictures(enc, code, label, top):
               f" ms  x{e.count}", flush=True)
     split = {g: sum(e.self_device_time_total for e in events
                     if any(k in e.key for k in keys)) / 1e3
-             for g, keys in K5_K7_SPLIT.items()}
+             for g, keys in KERNEL_SPLIT.items()}
     if any(split.values()):
-        print(f"K5/K7 device ms of the {label}: " + "; ".join(
+        print(f"K5-K8 device ms of the {label}: " + "; ".join(
             f"{g} {v:.3f}" for g, v in split.items()) + f"  [{CARD}]",
             flush=True)
     return aus, wall, {k: v - before.get(k, 0.0)
@@ -1265,8 +1481,12 @@ def main():
           f"[{CARD}]", flush=True)
     for line in _ptxas(K.resource_usage(), ("me_argmin_kernel",
                                             "me_refine_kernel",
-                                            "frac_refine_kernel")):
+                                            "frac_refine_kernel",
+                                            "subpel_kernel",
+                                            "cu_rd_kernel")):
         print(line, flush=True)
+    print("dynamic shared memory per CTA (bytes): " + json.dumps(
+        K.dynamic_smem()), flush=True)
     if native.get_lib() is None or native.get_dsp() is None:
         raise AssertionError("native commit engine did not build")
 
@@ -1289,6 +1509,10 @@ def main():
     check_band_kernels(xga[:5], dev, stats=stats, analysis=())
     # K5 and K7 on the inputs their invariants rest on, and a flat 1080p
     check_me_edges(dev)
+    # K6 and K8 likewise
+    check_k6_k8_edges(dev)
+    report_k6_k8(stats, torch.from_numpy(np.stack(
+        [frames[k][0] for k in (4, 3, 2, 1)]).astype("int32")).to(dev))
 
     # all-intra: warm-up frame, then a timed 3-frame encode_stream
     from hm16_2_tpu_torch.encode.intra_rd import fetch_plan

@@ -27,28 +27,53 @@
 // What bounds them on the H100.  K7 does 49 8x8 Hadamards (~600 int32
 // operations each) per (reference, 8x8 tile) and reads, per block, a
 // (16, bh + 1, bw + 1) window of phase planes (20x the samples of an 8x8
-// block, 4x those of a 64x64); K8 four (P) or eight (B) candidate SATDs
-// and up to three transform trials per CU: integer ALU work.  K7 once read
-// each candidate's 64 target and 64 prediction samples from global memory
-// with a row stride (and re-formed the bi target for every candidate), and
-// left 79 of 128 threads idle on an 8x8 block.  Now a CTA of 8 x 49
-// threads stages, per block, the one window that holds all 49 candidates
-// and the int32 target, formed once, in shared memory (172 KB for 64x64,
-// opted in as dynamic shared memory).  The window moves as the aligned
-// 16-byte chunks that hold its rows, by asynchronous copies (cp.async), so
-// that all of a CTA's bytes are in flight at once and no register holds
-// them.  A thread owns one candidate and 1-8 of its tiles and sums their
-// SATDs in a register; small blocks pack eight (8x8) to two (16x16) to a
-// CTA; a warp per block takes the 49-way argmin.  K8 is one CTA per CU
-// reading the neighbours' K7 results from global memory, with the trial's
-// transforms in shared memory (intra_common.cuh's chain, one TU at a
-// time).  Float steps follow XLA:CPU's rounding of the reference programs
+// block, 4x those of a 64x64).  K7 once read each candidate's 64 target
+// and 64 prediction samples from global memory with a row stride (and
+// re-formed the bi target for every candidate), and left 79 of 128 threads
+// idle on an 8x8 block.  Now a CTA of 8 x 49 threads stages, per block,
+// the one window that holds all 49 candidates and the int32 target, formed
+// once, in shared memory (172 KB for 64x64, opted in as dynamic shared
+// memory).  The window moves as the aligned 16-byte chunks that hold its
+// rows, by asynchronous copies (cp.async), so that all of a CTA's bytes
+// are in flight at once and no register holds them.  A thread owns one
+// candidate and 1-8 of its tiles and sums their SATDs in a register; small
+// blocks pack eight (8x8) to two (16x16) to a CTA; a warp per block takes
+// the 49-way argmin.
+//
+// K8 prices four (P) or eight (B: six merge, two bi) hypotheses per CU and
+// runs up to three transform trials (the winner's, the two rect shapes'),
+// each one to four TUs: latency-bound per-CU chains of int32 work.  Its
+// first design was one CTA of 256 threads per CU: one thread per 8x8 tile
+// summed each SATD (1 of 256 busy at s = 8, 64 at s = 64) from predictions
+// gathered out of global memory, the candidates one after another with two
+// barriers each, and the trials one TU at a time through intra_common.cuh's
+// chain, which counts its statistics with a shared-memory atomic per
+// coefficient and per sample.  Now a CTA takes 32 (s = 8), 8, 2 or 1 (s =
+// 64, 512 threads) CUs and runs each stage over all of them at once: the
+// blocks staged once by cp.async; every hypothesis's prediction staged as
+// int16 in shared memory by coalesced row reads; the (hypothesis, 8x8
+// tile) SATDs spread over the threads and summed in registers and warp
+// shuffles; a thread per CU walks the finished costs in the reference's
+// order; then every TU of every trial (a trial unit) goes through the four
+// transform stages together, each stage a shared-memory matrix product
+// whose threads own a column and 2-4 rows (16-byte loads of the row
+// operand, the column operand across the lanes: D is kept beside its
+// transpose so that no stage reads a column with a stride), and the level
+// statistics and SSEs are warp reductions (__reduce_add/max_sync), one
+// partial per warp and unit.  A thread per trial then sums its TUs' bits in
+// TU order.  The transforms stay on the int32 pipes: stage-2 inputs of up
+// to 16 bits do not fit the tensor cores' fp16 or int8 operands exactly.
+// Float steps follow XLA:CPU's rounding of the reference programs
 // (file built with --fmad=false): fused multiply-adds where XLA fuses
 // (`__fmaf_rn`: the refinement, list-pick, bi and trial costs) over
 // __int2float_rn of the integer SATD sums (any order: integers), a
 // separately rounded scalar product in the merge and intra-extra costs;
 // argmins keep the lowest index (K7's warp argmin compares (cost, index)
-// pairs), the merge update is a strict <.
+// pairs), the merge update and the kind picks are a strict <.
+//
+// Resources (ptxas -v, printed by chip_smoke.py with each kernel's dynamic
+// shared memory): K8 85 registers at s = 8, 88 at 16-64, no spills; 40,192
+// (s = 8) to 152,704 (s = 64) bytes of shared memory per CTA, opted in.
 #include "intra_common.cuh"
 
 namespace hm {
@@ -325,83 +350,18 @@ struct Hyp {
   int part, bi, uref[2], mvy[2], mvx[2];
 };
 
+// prediction sample (i, j) of a hypothesis for the CU of size S at (y0, x0)
 template <int S>
-__device__ __forceinline__ int hyp_pred(const CuRdArgs& a, const Hyp& hp,
-                                        int y0, int x0, int i, int j) {
+__device__ __forceinline__ int hyp_sample(const CuRdArgs& a, const Hyp& hp,
+                                          int y0, int x0, int i, int j) {
   if (hp.bi) {
     int p0 = pred_at(a.sub, a.Hp, a.Wp, hp.uref[0], hp.mvy[0], hp.mvx[0], y0, x0).at(i, j);
     int p1 = pred_at(a.sub, a.Hp, a.Wp, hp.uref[1], hp.mvy[1], hp.mvx[1], y0, x0).at(i, j);
     return (p0 + p1 + 1) >> 1;
   }
   int k = hp.part == 1 ? (i >= S / 2) : hp.part == 2 ? (j >= S / 2) : 0;
-  PredAt p = pred_at(a.sub, a.Hp, a.Wp, hp.uref[k], hp.mvy[k], hp.mvx[k],
-                     y0, x0);
-  return p.at(i, j);
-}
-
-template <int S>
-__device__ int cu_satd(const CuRdArgs& a, const Hyp& hp, int y0, int x0,
-                       int* acc) {
-  constexpr int T = S / 8, NT = T * T;
-  if (threadIdx.x == 0) *acc = 0;
-  __syncthreads();
-  for (int t = threadIdx.x; t < NT; t += blockDim.x) {
-    int ty = (t / T) * 8, tx = (t % T) * 8;
-    int v[64];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        v[i * 8 + j] = a.cur[(size_t)(y0 + ty + i) * a.w + x0 + tx + j] -
-                       hyp_pred<S>(a, hp, y0, x0, ty + i, tx + j);
-    atomicAdd(acc, satd8x8(v));
-  }
-  __syncthreads();
-  int r = *acc;
-  __syncthreads();
-  return r;
-}
-
-// residual trial of a CU hypothesis: (sse_rec, bits, sse_zero) on thread 0
-template <int S>
-__device__ void cu_trial(const CuRdArgs& a, const Hyp& hp, int y0, int x0,
-                         BlockSmem<(S < 32 ? S : 32), 1>& sm,
-                         unsigned int* zacc, float* sr, float* br,
-                         float* sz) {
-  constexpr int T = S < 32 ? S : 32, NTU = (S / T) * (S / T);
-  const int maxv = a.tq.maxv;
-  if (threadIdx.x == 0) *zacc = 0;
-  __syncthreads();
-  float bits = 0.f;
-  unsigned int rec_sse = 0;
-  for (int tu = 0; tu < NTU; ++tu) {
-    int ty = (tu / (S / T)) * T, tx = (tu % (S / T)) * T;
-    for (int q = threadIdx.x; q < T * T; q += blockDim.x) {
-      int i = ty + q / T, j = tx + q % T;
-      int o = a.cur[(size_t)(y0 + i) * a.w + x0 + j];
-      int p = hyp_pred<S>(a, hp, y0, x0, i, j);
-      sm.orig[0][q] = o;
-      sm.pred[0][q] = p;
-      sm.wa[0][q] = o - p;
-      int dz = o - clampi(p, 0, maxv);
-      atomicAdd(zacc, (unsigned int)(dz * dz));
-    }
-    __syncthreads();
-    transform_chain<T, 1>(sm, a.tq);
-    if (threadIdx.x == 0) {
-      float b = take_bits<T, 1>(sm, 0, a.model);
-      bits = tu == 0 ? b : __fadd_rn(bits, b);
-      rec_sse += sm.dist[0];
-      sm.dist[0] = 0;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    *sr = __int2float_rn((int)rec_sse);
-    *br = bits;
-    *sz = __int2float_rn((int)*zacc);
-  }
-  __syncthreads();
+  return pred_at(a.sub, a.Hp, a.Wp, hp.uref[k], hp.mvy[k], hp.mvx[k], y0,
+                 x0).at(i, j);
 }
 
 __device__ __forceinline__ void set_hyp(Hyp& hp, int l, const UniRes& u,
@@ -417,190 +377,488 @@ __device__ __forceinline__ float ref_bits(int ridx, int nref) {
   return nref > 1 ? __int2float_rn(min(ridx + 1, nref - 1)) : 0.f;
 }
 
-// one CTA per CU of size S.  P mode (B false): the merge set is the left
+// The CTA of cu_rd_kernel<S, B>: cu_group(S) CUs of size S (consecutive in
+// raster order), cu_threads(S) threads
+__host__ __device__ constexpr int cu_group(int S) {
+  return S == 8 ? 32 : S == 16 ? 8 : S == 32 ? 2 : 1;
+}
+__host__ __device__ constexpr int cu_threads(int S) {
+  return S == 64 ? 512 : 256;
+}
+
+// what the walk over a CU's priced hypotheses decided, for its trials'
+// results to finish
+struct CuState {
+  int kind, m_sel, dirv, mv0y, mv0x, mv1y, mv1x, ref0c, ref1c;
+  int pus[2][8];
+  float bits_motion, bits_cu[2];
+};
+
+template <int U, int TT>
+struct TrialBufs {
+  int a[U][TT], b[U][TT];
+  short p[U][TT];
+};
+
+// shared memory of one CTA.  A trial unit is one TU of one trial (the
+// winner's, then the two rect shapes') of one CU; the transform stages run
+// over all of a CTA's units at once
+template <int S, bool B>
+struct CuRdSmem {
+  static constexpr int G = cu_group(S), NTHR = cu_threads(S);
+  static constexpr int T = S < 32 ? S : 32, NTU = (S / T) * (S / T);
+  static constexpr int NM = B ? 6 : 4;          // merge candidates
+  static constexpr int NH = B ? NM + 2 : NM;    // priced hypotheses (+ bi)
+  static constexpr int NTR = S >= 16 ? 3 : 1;   // trials per CU at most
+  static constexpr int U = G * NTR * NTU;       // trial units at most
+  static constexpr int RB = T == 8 ? 2 : 4;     // rows of a stage item
+  static constexpr int NCH = T * T / RB / 32;   // warps' items per unit
+  static constexpr int NT8 = (S / 8) * (S / 8); // 8x8 tiles of a CU
+  static constexpr int TPH = NT8 < NTHR / (G * NH) ? NT8 : NTHR / (G * NH);
+  alignas(16) int cur[G][S * S];
+  alignas(16) int tm[T * T];                    // the DCT, D[k][j]
+  alignas(16) int tmT[T * T];                   // its transpose
+  union alignas(16) Work {
+    short pred[G][NH][S * S];                   // the priced hypotheses
+    TrialBufs<U, T * T> tr;                     // the trial units
+  } w;
+  Hyp hyp[G][NH];
+  Hyp thyp[G][NTR];
+  int part[NTHR];                               // SATD partial sums
+  int stat[U][NCH][5];                          // nnz, gt1, esc, last x, y
+  unsigned int sse[U][NCH][2];                  // reconstruction, zero
+  float res[G][NTR][3];                         // sse_rec, bits, sse_zero
+  CuState st[G];
+};
+
+// RB outputs (rows r0, r0 + T/RB, ..., column c) of the T x T product
+// X Y (int32, any order: integers); four of X's row entries per 16-byte
+// load, Y's column read across the warp's lanes
+template <int T, int RB>
+__device__ __forceinline__ void mm_item(const int* X, const int* Y, int r0,
+                                        int c, int (&acc)[RB]) {
+#pragma unroll
+  for (int q = 0; q < RB; ++q) acc[q] = 0;
+#pragma unroll
+  for (int j = 0; j < T; j += 4) {
+    int y0 = Y[j * T + c], y1 = Y[(j + 1) * T + c];
+    int y2 = Y[(j + 2) * T + c], y3 = Y[(j + 3) * T + c];
+#pragma unroll
+    for (int q = 0; q < RB; ++q) {
+      int4 x = *(const int4*)(X + (r0 + q * (T / RB)) * T + j);
+      acc[q] += x.x * y0 + x.y * y1 + x.z * y2 + x.w * y3;
+    }
+  }
+}
+
+// G CUs of size S per CTA.  P mode (B false): the merge set is the left
 // and above neighbours' list-0 winners, the prior, zero; the kinds merge and
 // uni-L0.  B mode: six bi merge candidates (the A1 / B1 / B0 / A0
 // neighbours' winners of both lists, the priors, zero), the kinds merge,
 // uni-L0, uni-L1 and bi (the list winners' average, or the refined pair
 // where strictly cheaper), and rect PUs from the cheaper list.
+//
+// Stages, each over all of the CTA's CUs: the blocks (cp.async) and the
+// hypotheses; the hypotheses' predictions (int16); their SATDs as
+// (hypothesis, 8x8 tile) items summed in registers and warp shuffles; a
+// thread per CU walks the costs in the reference's order; the trials'
+// predictions and residuals; the four transform stages over all trial units,
+// the level statistics and SSEs reduced per warp; a thread per trial sums
+// its TUs in order; a thread per CU finishes the record.
 template <int S, bool B>
-__global__ void __launch_bounds__(kThreads) cu_rd_kernel(CuRdArgs a) {
-  constexpr int T = S < 32 ? S : 32;
-  constexpr int NL = B ? 2 : 1;              // reference lists
-  constexpr int NR = B ? 4 : 2;              // rolled neighbours
-  __shared__ BlockSmem<T, 1> sm;
-  __shared__ int sacc;
-  __shared__ unsigned int zacc;
-  __shared__ float t_sr, t_br, t_sz;
-  const int n = blockIdx.x, N = gridDim.x;
-  const int ny = N / a.nx;
-  const int ci = n / a.nx, cj = n % a.nx, y0 = ci * S, x0 = cj * S;
-  for (int q = threadIdx.x; q < T * T; q += blockDim.x) sm.tm[q] = a.tm[q];
-  if (threadIdx.x == 0) {
-    sm.dist[0] = 0;
-    sm.nnz[0] = sm.gt1[0] = sm.esc[0] = 0;
-    sm.last_x[0] = sm.last_y[0] = -1;
+__global__ void __launch_bounds__(cu_threads(S), S == 64 ? 1 : 2)
+cu_rd_kernel(CuRdArgs a, int N) {
+  using Sm = CuRdSmem<S, B>;
+  constexpr int G = Sm::G, NTHR = Sm::NTHR, T = Sm::T, TT = T * T;
+  constexpr int NTU = Sm::NTU, SPR = S / T, NM = Sm::NM, NH = Sm::NH;
+  constexpr int NR = NM - 2, NL = B ? 2 : 1;  // rolled neighbours, lists
+  constexpr int RB = Sm::RB, NCH = Sm::NCH, IPU = TT / RB, TPH = Sm::TPH;
+  constexpr int WR = TPH < 32 ? TPH : 32, PPH = TPH / WR;
+  constexpr unsigned kFull = 0xffffffffu;
+  extern __shared__ uint4 cu_smem[];
+  Sm& sm = *reinterpret_cast<Sm*>(cu_smem);
+  const TqParams& p = a.tq;
+  const int tid = threadIdx.x, n0 = blockIdx.x * G;
+  const int ng = min(G, N - n0), ny = N / a.nx;
+  const int ntr = a.has_rect ? Sm::NTR : 1, nu = ng * ntr * NTU;
+  const int roll_dy[4] = {0, 1, 1, -1}, roll_dx[4] = {1, 0, -1, 1};
+
+  // ---- the DCT, the blocks, the hypotheses ----
+  for (int q = tid; q < TT; q += NTHR) {
+    int v = a.tm[q];
+    sm.tm[q] = v;
+    sm.tmT[(q % T) * T + q / T] = v;
+  }
+  if ((((uintptr_t)a.cur | (uintptr_t)a.w * 4) & 15) == 0) {
+    for (int q = tid * 4; q < ng * S * S; q += NTHR * 4) {
+      int g = q / (S * S), e = q % (S * S), n = n0 + g;
+      cp_async16(&sm.cur[g][e], a.cur + (size_t)((n / a.nx) * S + e / S) * a.w
+                                    + (n % a.nx) * S + e % S);
+    }
+  } else {
+    for (int q = tid; q < ng * S * S; q += NTHR) {
+      int g = q / (S * S), e = q % (S * S), n = n0 + g;
+      cp_async4(&sm.cur[g][e], a.cur + (size_t)((n / a.nx) * S + e / S) * a.w
+                                   + (n % a.nx) * S + e % S);
+    }
+  }
+  if (tid < ng) {
+    const int g = tid, n = n0 + g, ci = n / a.nx, cj = n % a.nx;
+    for (int m = 0; m < NM; ++m) {
+      Hyp hp{};
+      hp.bi = B;
+      if (m < NR) {
+        // torch.roll / jnp.roll by (dy, dx): the CU reads the winner at
+        // (ci - dy, cj - dx), wrapped (a wrapped read costs inf below)
+        int nb = ((ci - roll_dy[m] + ny) % ny) * a.nx +
+                 (cj - roll_dx[m] + a.nx) % a.nx;
+        for (int l = 0; l < NL; ++l) set_hyp(hp, l, l ? a.uni1 : a.uni, nb);
+      } else {
+        bool prior = m == NR;
+        hp.uref[0] = a.ref0;
+        hp.mvy[0] = prior ? a.tmvp4[n * 2] : 0;
+        hp.mvx[0] = prior ? a.tmvp4[n * 2 + 1] : 0;
+        if (B) {
+          hp.uref[1] = a.ref1;
+          hp.mvy[1] = prior ? a.tmvp4_1[n * 2] : 0;
+          hp.mvx[1] = prior ? a.tmvp4_1[n * 2 + 1] : 0;
+        }
+      }
+      sm.hyp[g][m] = hp;
+    }
+    if constexpr (B) {
+      // bi from the two list winners, and from the refined pair
+      Hyp hb{};
+      hb.bi = 1;
+      set_hyp(hb, 0, a.uni, n);
+      set_hyp(hb, 1, a.uni1, n);
+      Hyp hi = hb;
+      hi.mvy[0] = a.mvb0[n * 2]; hi.mvx[0] = a.mvb0[n * 2 + 1];
+      hi.mvy[1] = a.mvb1[n * 2]; hi.mvx[1] = a.mvb1[n * 2 + 1];
+      sm.hyp[g][NM] = hb;
+      sm.hyp[g][NM + 1] = hi;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ---- the priced hypotheses' predictions ----
+  for (int q = tid; q < ng * NH * S * S; q += NTHR) {
+    int gm = q / (S * S), e = q % (S * S), g = gm / NH, n = n0 + g;
+    (&sm.w.pred[0][0][0])[q] = (short)hyp_sample<S>(
+        a, sm.hyp[g][gm % NH], (n / a.nx) * S, (n % a.nx) * S, e / S, e % S);
   }
   __syncthreads();
 
-  // ---- merge set; strict < keeps the first ----
-  const int roll_dy[4] = {0, 1, 1, -1}, roll_dx[4] = {1, 0, -1, 1};
-  float m_cost = 0.f, m_bits = 0.f;
-  int m_sel = 0, m_ridx[2] = {0, 0};
-  Hyp m_hyp{};
-  for (int m = 0; m < NR + 2; ++m) {
-    Hyp hp{};
-    hp.bi = B;
-    int ridx[2] = {0, 0};
-    bool invalid = false;
-    if (m < NR) {
-      // torch.roll / jnp.roll by (dy, dx): the CU reads the winner at
-      // (ci - dy, cj - dx), wrapped; a wrapped read is invalid
-      int dy = roll_dy[m], dx = roll_dx[m];
-      int nb = ((ci - dy + ny) % ny) * a.nx + (cj - dx + a.nx) % a.nx;
-      invalid = (dy > 0 && ci == 0) || (dy < 0 && ci == ny - 1) ||
-                (dx > 0 && cj == 0) || (dx < 0 && cj == a.nx - 1);
-      for (int l = 0; l < NL; ++l) {
-        const UniRes& u = l ? a.uni1 : a.uni;
-        set_hyp(hp, l, u, nb);
-        ridx[l] = u.ridx[nb];
-      }
-    } else {
-      bool prior = m == NR;
-      hp.uref[0] = a.ref0;
-      hp.mvy[0] = prior ? a.tmvp4[n * 2] : 0;
-      hp.mvx[0] = prior ? a.tmvp4[n * 2 + 1] : 0;
-      if (B) {
-        hp.uref[1] = a.ref1;
-        hp.mvy[1] = prior ? a.tmvp4_1[n * 2] : 0;
-        hp.mvx[1] = prior ? a.tmvp4_1[n * 2 + 1] : 0;
+  // ---- their SATDs: TPH threads per hypothesis, its tiles TPH apart ----
+  {
+    const int grp = tid / TPH, lt = tid % TPH;
+    int sum = 0;
+    if (grp < ng * NH) {
+      const int* cb = sm.cur[grp / NH];
+      const short* pb = sm.w.pred[grp / NH][grp % NH];
+      for (int t = lt; t < Sm::NT8; t += TPH) {
+        const int ty = (t / (S / 8)) * 8, tx = (t % (S / 8)) * 8;
+        int v[64];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int4* c4 = (const int4*)(cb + (ty + i) * S + tx);
+          int4 lo = c4[0], hi = c4[1];
+          uint4 pq = *(const uint4*)(pb + (ty + i) * S + tx);
+          unsigned int pw[4] = {pq.x, pq.y, pq.z, pq.w};
+          int o[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)   // the int16 pair j / 2, low first
+            v[i * 8 + j] = o[j] - ((int)(pw[j >> 1] << (16 - 16 * (j & 1))) >> 16);
+        }
+        sum += satd8x8(v);
       }
     }
-    int satd = cu_satd<S>(a, hp, y0, x0, &sacc);
-    float bits = __fadd_rn(__int2float_rn(min(m + 1, a.nmerge - 1) + 1), 1.0f);
-    float c = __fadd_rn(__fadd_rn(__int2float_rn(satd), __fmul_rn(a.lams, bits)),
-                        invalid ? inf_f() : 0.f);
-    if (m == 0 || c < m_cost) {
-      m_cost = c; m_bits = bits; m_sel = m; m_hyp = hp;
-      m_ridx[0] = ridx[0];
-      m_ridx[1] = ridx[1];
-    }
+#pragma unroll
+    for (int off = WR / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(kFull, sum, off);
+    if (lt % WR == 0) sm.part[tid / WR] = sum;
   }
+  __syncthreads();
 
-  // ---- kind: the first least of merge, uni-L0 (, uni-L1, bi) ----
-  int kind = 0;
-  float kcost = m_cost, bits_motion = m_bits;
-  Hyp best = m_hyp;
-  int mv0y = m_hyp.mvy[0], mv0x = m_hyp.mvx[0], mv1y = 0, mv1x = 0;
-  int ref0c = m_ridx[0], ref1c = -1, dirv = B ? 3 : 1;
-  if (B) {
-    mv1y = m_hyp.mvy[1];
-    mv1x = m_hyp.mvx[1];
-    ref1c = m_ridx[1];
-  }
-  if (a.uni.cost[n] < kcost) {
-    kind = 1; kcost = a.uni.cost[n]; bits_motion = a.uni.bits[n];
-    best = Hyp{};
-    set_hyp(best, 0, a.uni, n);
-    mv0y = best.mvy[0]; mv0x = best.mvx[0]; mv1y = mv1x = 0;
-    ref0c = a.uni.ridx[n]; ref1c = -1; dirv = 1;
-  }
-  if (B) {
-    if (a.uni1.cost[n] < kcost) {
-      kind = 2; kcost = a.uni1.cost[n]; bits_motion = a.uni1.bits[n];
+  // ---- a thread per CU walks the costs in the reference's order ----
+  if (tid < ng) {
+    const int g = tid, n = n0 + g, ci = n / a.nx, cj = n % a.nx;
+    int satd[NH];
+#pragma unroll
+    for (int m = 0; m < NH; ++m) {
+      satd[m] = 0;
+      for (int t = 0; t < PPH; ++t) satd[m] += sm.part[(g * NH + m) * PPH + t];
+    }
+    // merge set; strict < keeps the first
+    float m_cost = 0.f, m_bits = 0.f;
+    int m_sel = 0, m_ridx[2] = {0, 0};
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      int ridx[2] = {0, 0};
+      bool invalid = false;
+      if (m < NR) {
+        int dy = roll_dy[m], dx = roll_dx[m];
+        int nb = ((ci - dy + ny) % ny) * a.nx + (cj - dx + a.nx) % a.nx;
+        invalid = (dy > 0 && ci == 0) || (dy < 0 && ci == ny - 1) ||
+                  (dx > 0 && cj == 0) || (dx < 0 && cj == a.nx - 1);
+        for (int l = 0; l < NL; ++l) ridx[l] = (l ? a.uni1 : a.uni).ridx[nb];
+      }
+      float bits = __fadd_rn(__int2float_rn(min(m + 1, a.nmerge - 1) + 1), 1.0f);
+      float c = __fadd_rn(__fadd_rn(__int2float_rn(satd[m]), __fmul_rn(a.lams, bits)),
+                          invalid ? inf_f() : 0.f);
+      if (m == 0 || c < m_cost) {
+        m_cost = c; m_bits = bits; m_sel = m;
+        m_ridx[0] = ridx[0];
+        m_ridx[1] = ridx[1];
+      }
+    }
+
+    // kind: the first least of merge, uni-L0 (, uni-L1, bi)
+    CuState s;
+    const Hyp& mh = sm.hyp[g][m_sel];
+    Hyp best = mh;
+    s.kind = 0; s.m_sel = m_sel; s.bits_motion = m_bits;
+    s.mv0y = mh.mvy[0]; s.mv0x = mh.mvx[0];
+    s.mv1y = B ? mh.mvy[1] : 0; s.mv1x = B ? mh.mvx[1] : 0;
+    s.ref0c = m_ridx[0]; s.ref1c = B ? m_ridx[1] : -1; s.dirv = B ? 3 : 1;
+    float kcost = m_cost;
+    if (a.uni.cost[n] < kcost) {
+      s.kind = 1; kcost = a.uni.cost[n]; s.bits_motion = a.uni.bits[n];
       best = Hyp{};
-      set_hyp(best, 0, a.uni1, n);
-      mv0y = mv0x = 0; mv1y = best.mvy[0]; mv1x = best.mvx[0];
-      ref0c = -1; ref1c = a.uni1.ridx[n]; dirv = 2;
+      set_hyp(best, 0, a.uni, n);
+      s.mv0y = best.mvy[0]; s.mv0x = best.mvx[0]; s.mv1y = s.mv1x = 0;
+      s.ref0c = a.uni.ridx[n]; s.ref1c = -1; s.dirv = 1;
     }
-    // bi from the two list winners, and from the refined pair
-    Hyp hb{};
-    hb.bi = 1;
-    set_hyp(hb, 0, a.uni, n);
-    set_hyp(hb, 1, a.uni1, n);
-    float bb = __fadd_rn(__fadd_rn(a.uni.bits[n], a.uni1.bits[n]), -2.0f);
-    float cb = __fmaf_rn(a.lams, bb, __int2float_rn(cu_satd<S>(a, hb, y0, x0, &sacc)));
-    Hyp hi = hb;
-    hi.mvy[0] = a.mvb0[n * 2]; hi.mvx[0] = a.mvb0[n * 2 + 1];
-    hi.mvy[1] = a.mvb1[n * 2]; hi.mvx[1] = a.mvb1[n * 2 + 1];
-    float mb = __fadd_rn(
-        mvd_bits(hi.mvx[0] - a.anchor0[n * 2 + 1], hi.mvy[0] - a.anchor0[n * 2]),
-        mvd_bits(hi.mvx[1] - a.anchor1[n * 2 + 1], hi.mvy[1] - a.anchor1[n * 2]));
-    float bi_it = __fadd_rn(__fadd_rn(__fadd_rn(mb, ref_bits(a.uni.ridx[n], a.nref0)),
-                                      ref_bits(a.uni1.ridx[n], a.nref1)), 6.0f);
-    float ci_ = __fmaf_rn(a.lams, bi_it, __int2float_rn(cu_satd<S>(a, hi, y0, x0, &sacc)));
-    bool it = ci_ < cb;
-    if ((it ? ci_ : cb) < kcost) {
-      kind = 3; bits_motion = it ? bi_it : bb;
-      best = it ? hi : hb;
-      mv0y = best.mvy[0]; mv0x = best.mvx[0];
-      mv1y = best.mvy[1]; mv1x = best.mvx[1];
-      ref0c = a.uni.ridx[n]; ref1c = a.uni1.ridx[n]; dirv = 3;
-    }
-  }
-  best.part = 0;
-  const bool is_merge = kind == 0;
-  cu_trial<S>(a, best, y0, x0, sm, &zacc, &t_sr, &t_br, &t_sz);
-  float cost_coded = __fmaf_rn(a.lamf, __fadd_rn(__fadd_rn(t_br, bits_motion), 2.0f), t_sr);
-  float bits_zero = __fsub_rn(__fadd_rn(bits_motion, is_merge ? 0.0f : 1.0f), 0.0f);
-  float cost_zero = __fmaf_rn(a.lamf, bits_zero, t_sz);
-  bool skip = cost_zero <= cost_coded;
-  float inter = fminf(cost_coded, cost_zero);
-
-  // ---- 2NxN / Nx2N; in B mode each PU takes list 1 where strictly
-  // cheaper ----
-  int part_ch = 0;
-  int pu[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  if (a.has_rect) {
-    float rc[2];
-    int pus[2][8];
-    for (int pi = 0; pi < 2; ++pi) {
-      int k0, k1;
-      if (pi == 0) { k0 = (2 * ci) * a.nx + cj; k1 = k0 + a.nx; }
-      else { k0 = ci * 2 * a.nx + 2 * cj; k1 = k0 + 1; }
-      Hyp hp{};
-      hp.part = pi + 1;
-      int ks[2] = {k0, k1};
-      float pb[2];
-      for (int u = 0; u < 2; ++u) {
-        int k = ks[u];
-        bool use1 = B && a.rect1[pi].cost[k] < a.rect[pi].cost[k];
-        const UniRes& e = use1 ? a.rect1[pi] : a.rect[pi];
-        set_hyp(hp, u, e, k);
-        pb[u] = e.bits[k];
-        pus[pi][u * 4] = use1 ? 2 : 1;
-        pus[pi][u * 4 + 1] = hp.mvy[u];
-        pus[pi][u * 4 + 2] = hp.mvx[u];
-        pus[pi][u * 4 + 3] = e.ridx[k];
+    if constexpr (B) {
+      if (a.uni1.cost[n] < kcost) {
+        s.kind = 2; kcost = a.uni1.cost[n]; s.bits_motion = a.uni1.bits[n];
+        best = Hyp{};
+        set_hyp(best, 0, a.uni1, n);
+        s.mv0y = s.mv0x = 0; s.mv1y = best.mvy[0]; s.mv1x = best.mvx[0];
+        s.ref0c = -1; s.ref1c = a.uni1.ridx[n]; s.dirv = 2;
       }
-      float bits_cu = __fadd_rn(__fadd_rn(pb[0], pb[1]), 1.5f);
-      cu_trial<S>(a, hp, y0, x0, sm, &zacc, &t_sr, &t_br, &t_sz);
-      float cc = __fmaf_rn(a.lamf, __fadd_rn(__fadd_rn(t_br, bits_cu), 2.0f), t_sr);
-      float cz = __fmaf_rn(a.lamf, __fadd_rn(bits_cu, 1.0f), t_sz);
-      rc[pi] = fminf(cc, cz);
+      const Hyp &hb = sm.hyp[g][NM], &hi = sm.hyp[g][NM + 1];
+      float bb = __fadd_rn(__fadd_rn(a.uni.bits[n], a.uni1.bits[n]), -2.0f);
+      float cb = __fmaf_rn(a.lams, bb, __int2float_rn(satd[NM]));
+      float mb = __fadd_rn(
+          mvd_bits(hi.mvx[0] - a.anchor0[n * 2 + 1], hi.mvy[0] - a.anchor0[n * 2]),
+          mvd_bits(hi.mvx[1] - a.anchor1[n * 2 + 1], hi.mvy[1] - a.anchor1[n * 2]));
+      float bi_it = __fadd_rn(__fadd_rn(__fadd_rn(mb, ref_bits(a.uni.ridx[n], a.nref0)),
+                                        ref_bits(a.uni1.ridx[n], a.nref1)), 6.0f);
+      float ci_ = __fmaf_rn(a.lams, bi_it, __int2float_rn(satd[NM + 1]));
+      bool it = ci_ < cb;
+      if ((it ? ci_ : cb) < kcost) {
+        s.kind = 3; s.bits_motion = it ? bi_it : bb;
+        best = it ? hi : hb;
+        s.mv0y = best.mvy[0]; s.mv0x = best.mvx[0];
+        s.mv1y = best.mvy[1]; s.mv1x = best.mvx[1];
+        s.ref0c = a.uni.ridx[n]; s.ref1c = a.uni1.ridx[n]; s.dirv = 3;
+      }
     }
-    bool use_b = rc[1] < rc[0];
-    float rect_cost = fminf(rc[0], rc[1]);
-    part_ch = rect_cost < inter ? (use_b ? 2 : 1) : 0;
-    for (int f = 0; f < 8; ++f) pu[f] = pus[use_b ? 1 : 0][f];
-    inter = fminf(inter, rect_cost);
-  }
+    best.part = 0;
+    sm.thyp[g][0] = best;
 
-  // ---- intra alternative ----
-  int intra = 0, imode = 0, c3[3] = {0, 0, 0};
-  float cu_cost = inter;
-  if (a.has_intra) {
-    float icost = __fadd_rn(a.i_cost[n], __fmul_rn(a.lamf, 3.0f));
-    intra = icost < inter;
-    imode = a.i_mode[n];
-    for (int k = 0; k < 3; ++k) c3[k] = a.i_top3[n * 3 + k];
-    cu_cost = fminf(inter, icost);
+    // 2NxN / Nx2N; in B mode each PU takes list 1 where strictly cheaper
+    if (ntr > 1) {
+      for (int pi = 0; pi < 2; ++pi) {
+        int k0, k1;
+        if (pi == 0) { k0 = (2 * ci) * a.nx + cj; k1 = k0 + a.nx; }
+        else { k0 = ci * 2 * a.nx + 2 * cj; k1 = k0 + 1; }
+        Hyp hp{};
+        hp.part = pi + 1;
+        int ks[2] = {k0, k1};
+        float pb[2];
+        for (int u = 0; u < 2; ++u) {
+          int k = ks[u];
+          bool use1 = B && a.rect1[pi].cost[k] < a.rect[pi].cost[k];
+          const UniRes& e = use1 ? a.rect1[pi] : a.rect[pi];
+          set_hyp(hp, u, e, k);
+          pb[u] = e.bits[k];
+          s.pus[pi][u * 4] = use1 ? 2 : 1;
+          s.pus[pi][u * 4 + 1] = hp.mvy[u];
+          s.pus[pi][u * 4 + 2] = hp.mvx[u];
+          s.pus[pi][u * 4 + 3] = e.ridx[k];
+        }
+        s.bits_cu[pi] = __fadd_rn(__fadd_rn(pb[0], pb[1]), 1.5f);
+        sm.thyp[g][1 + pi] = hp;
+      }
+    }
+    sm.st[g] = s;
   }
+  __syncthreads();
 
-  if (threadIdx.x == 0) {
+  // ---- the trial units' predictions and residuals ----
+  for (int q = tid; q < nu * TT; q += NTHR) {
+    int u = q / TT, e = q % TT, gk = u / NTU, tu = u % NTU;
+    int g = gk / ntr, n = n0 + g;
+    int i = (tu / SPR) * T + e / T, j = (tu % SPR) * T + e % T;
+    int pv = hyp_sample<S>(a, sm.thyp[g][gk - g * ntr], (n / a.nx) * S,
+                           (n % a.nx) * S, i, j);
+    sm.w.tr.p[u][e] = (short)pv;
+    sm.w.tr.a[u][e] = sm.cur[g][i * S + j] - pv;
+  }
+  __syncthreads();
+
+  // ---- forward stage 1: b[i][k] = sum_j resi[i][j] * D[k][j] ----
+  for (int it = tid; it < nu * IPU; it += NTHR) {
+    const int u = it / IPU, rem = it % IPU, c = rem % T, r0 = rem / T;
+    int acc[RB];
+    mm_item<T, RB>(sm.w.tr.a[u], sm.tmT, r0, c, acc);
+#pragma unroll
+    for (int q = 0; q < RB; ++q)
+      sm.w.tr.b[u][(r0 + q * (T / RB)) * T + c] = p.fwd_s1 > 0
+          ? (acc[q] + (1 << (p.fwd_s1 - 1))) >> p.fwd_s1 : acc[q] << (-p.fwd_s1);
+  }
+  __syncthreads();
+
+  // ---- forward stage 2, quant, statistics (per warp), dequant ----
+  for (int it = tid; it < nu * IPU; it += NTHR) {
+    const int u = it / IPU, rem = it % IPU, c = rem % T, r0 = rem / T;
+    int acc[RB];
+    mm_item<T, RB>(sm.tm, sm.w.tr.b[u], r0, c, acc);
+    int nnz = 0, gt1 = 0, esc = 0, lx = -1, ly = -1;
+#pragma unroll
+    for (int q = 0; q < RB; ++q) {
+      const int k = r0 + q * (T / RB);
+      int coef = (acc[q] + (1 << (p.fwd_s2 - 1))) >> p.fwd_s2;
+      int av = coef < 0 ? -coef : coef;
+      int lv = (av * p.q_scale + p.q_add) >> p.q_bits;
+      lv = lv < 32767 ? lv : 32767;
+      int level = coef < 0 ? -lv : (coef > 0 ? lv : 0);
+      if (lv > 0) {
+        ++nnz;
+        lx = c;
+        ly = max(ly, k);
+        if (lv > 1) {
+          ++gt1;
+          esc += 2 * bit_length(lv - 1) + 1;
+        }
+      }
+      int dq = clampi(level, p.dq_min, p.dq_max) * p.dq_scale;
+      dq = p.dq_shift > 0 ? (dq + (1 << (p.dq_shift - 1))) >> p.dq_shift
+                          : dq << (-p.dq_shift);
+      sm.w.tr.a[u][k * T + c] = clampi(dq, -32768, 32767);
+    }
+    nnz = __reduce_add_sync(kFull, nnz);
+    gt1 = __reduce_add_sync(kFull, gt1);
+    esc = __reduce_add_sync(kFull, esc);
+    lx = __reduce_max_sync(kFull, lx);
+    ly = __reduce_max_sync(kFull, ly);
+    if ((tid & 31) == 0) {
+      int* st = sm.stat[u][rem >> 5];
+      st[0] = nnz; st[1] = gt1; st[2] = esc; st[3] = lx; st[4] = ly;
+    }
+  }
+  __syncthreads();
+
+  // ---- inverse stage 1: b[i][k] = clip((sum_j D[j][i] deq[j][k] + 64) >> 7) ----
+  for (int it = tid; it < nu * IPU; it += NTHR) {
+    const int u = it / IPU, rem = it % IPU, c = rem % T, r0 = rem / T;
+    int acc[RB];
+    mm_item<T, RB>(sm.tmT, sm.w.tr.a[u], r0, c, acc);
+#pragma unroll
+    for (int q = 0; q < RB; ++q)
+      sm.w.tr.b[u][(r0 + q * (T / RB)) * T + c] =
+          clampi((acc[q] + 64) >> 7, -32768, 32767);
+  }
+  __syncthreads();
+
+  // ---- inverse stage 2, reconstruction; the SSEs (per warp) ----
+  for (int it = tid; it < nu * IPU; it += NTHR) {
+    const int u = it / IPU, rem = it % IPU, c = rem % T, r0 = rem / T;
+    const int tu = u % NTU, g = u / NTU / ntr;
+    const int* ob = sm.cur[g] + (tu / SPR) * T * S + (tu % SPR) * T;
+    int acc[RB];
+    mm_item<T, RB>(sm.w.tr.b[u], sm.tm, r0, c, acc);
+    unsigned int rs = 0, zs = 0;
+#pragma unroll
+    for (int q = 0; q < RB; ++q) {
+      const int i = r0 + q * (T / RB);
+      int rres = clampi((acc[q] + (1 << (p.inv_s2 - 1))) >> p.inv_s2,
+                        -32768, 32767);
+      int pv = sm.w.tr.p[u][i * T + c], o = ob[i * S + c];
+      int d = o - clampi(pv + rres, 0, p.maxv);
+      int dz = o - clampi(pv, 0, p.maxv);
+      rs += (unsigned int)(d * d);
+      zs += (unsigned int)(dz * dz);
+    }
+    rs = __reduce_add_sync(kFull, rs);
+    zs = __reduce_add_sync(kFull, zs);
+    if ((tid & 31) == 0) {
+      sm.sse[u][rem >> 5][0] = rs;
+      sm.sse[u][rem >> 5][1] = zs;
+    }
+  }
+  __syncthreads();
+
+  // ---- a thread per trial: its TUs' bits in TU order, its SSEs ----
+  if (tid < ng * ntr) {
+    float bits = 0.f;
+    unsigned int rs = 0, zs = 0;
+    for (int tu = 0; tu < NTU; ++tu) {
+      const int u = tid * NTU + tu;
+      int nnz = 0, gt1 = 0, esc = 0, lx = -1, ly = -1;
+      for (int ch = 0; ch < NCH; ++ch) {
+        const int* st = sm.stat[u][ch];
+        nnz += st[0]; gt1 += st[1]; esc += st[2];
+        lx = max(lx, st[3]); ly = max(ly, st[4]);
+        rs += sm.sse[u][ch][0];
+        zs += sm.sse[u][ch][1];
+      }
+      float b = bits_estimate(nnz, lx, ly, gt1, esc, a.model);
+      bits = tu == 0 ? b : __fadd_rn(bits, b);
+    }
+    float* r = sm.res[tid / ntr][tid % ntr];
+    r[0] = __int2float_rn((int)rs);
+    r[1] = bits;
+    r[2] = __int2float_rn((int)zs);
+  }
+  __syncthreads();
+
+  // ---- a thread per CU: skip, rect shapes, intra, the record ----
+  if (tid < ng) {
+    const int g = tid, n = n0 + g;
+    const CuState& s = sm.st[g];
+    const float* t0 = sm.res[g][0];
+    const bool is_merge = s.kind == 0;
+    float cost_coded = __fmaf_rn(a.lamf, __fadd_rn(__fadd_rn(t0[1], s.bits_motion), 2.0f), t0[0]);
+    float bits_zero = __fsub_rn(__fadd_rn(s.bits_motion, is_merge ? 0.0f : 1.0f), 0.0f);
+    float cost_zero = __fmaf_rn(a.lamf, bits_zero, t0[2]);
+    bool skip = cost_zero <= cost_coded;
+    float inter = fminf(cost_coded, cost_zero);
+
+    int part_ch = 0;
+    int pu[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (ntr > 1) {
+      float rc[2];
+      for (int pi = 0; pi < 2; ++pi) {
+        const float* t = sm.res[g][1 + pi];
+        float cc = __fmaf_rn(a.lamf, __fadd_rn(__fadd_rn(t[1], s.bits_cu[pi]), 2.0f), t[0]);
+        float cz = __fmaf_rn(a.lamf, __fadd_rn(s.bits_cu[pi], 1.0f), t[2]);
+        rc[pi] = fminf(cc, cz);
+      }
+      bool use_b = rc[1] < rc[0];
+      float rect_cost = fminf(rc[0], rc[1]);
+      part_ch = rect_cost < inter ? (use_b ? 2 : 1) : 0;
+      for (int f = 0; f < 8; ++f) pu[f] = s.pus[use_b ? 1 : 0][f];
+      inter = fminf(inter, rect_cost);
+    }
+
+    // intra alternative
+    int intra = 0, imode = 0, c3[3] = {0, 0, 0};
+    float cu_cost = inter;
+    if (a.has_intra) {
+      float icost = __fadd_rn(a.i_cost[n], __fmul_rn(a.lamf, 3.0f));
+      intra = icost < inter;
+      imode = a.i_mode[n];
+      for (int k = 0; k < 3; ++k) c3[k] = a.i_top3[n * 3 + k];
+      cu_cost = fminf(inter, icost);
+    }
+
     int* r = a.rec + (size_t)n * 24;
-    int vals[24] = {kind, m_sel, dirv, skip ? 1 : 0, intra, imode,
-                    mv0y, mv0x, mv1y, mv1x, ref0c, ref1c,
+    int vals[24] = {s.kind, s.m_sel, s.dirv, skip ? 1 : 0, intra, imode,
+                    s.mv0y, s.mv0x, s.mv1y, s.mv1x, s.ref0c, s.ref1c,
                     c3[0], c3[1], c3[2], part_ch,
                     pu[0], pu[1], pu[2], pu[3], pu[4], pu[5], pu[6], pu[7]};
     for (int f = 0; f < 24; ++f) r[f] = vals[f];
@@ -646,24 +904,52 @@ extern "C" int hm_uni_select(const int* mvq, const float* satd,
   return (int)cudaGetLastError();
 }
 
-template <bool B>
-static int launch_cu_rd(const hm::CuRdArgs* a, int s, int N, cudaStream_t st) {
-  switch (s) {
-    case 8: hm::cu_rd_kernel<8, B><<<N, hm::kThreads, 0, st>>>(*a); break;
-    case 16: hm::cu_rd_kernel<16, B><<<N, hm::kThreads, 0, st>>>(*a); break;
-    case 32: hm::cu_rd_kernel<32, B><<<N, hm::kThreads, 0, st>>>(*a); break;
-    case 64: hm::cu_rd_kernel<64, B><<<N, hm::kThreads, 0, st>>>(*a); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int S, bool B>
+static int launch_cu_rd_s(const hm::CuRdArgs* a, int N, cudaStream_t st) {
+  using Sm = hm::CuRdSmem<S, B>;
+  cudaError_t err = cudaFuncSetAttribute(
+      hm::cu_rd_kernel<S, B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(Sm));
+  if (err != cudaSuccess) return (int)err;
+  hm::cu_rd_kernel<S, B><<<(N + Sm::G - 1) / Sm::G, Sm::NTHR, sizeof(Sm),
+                           st>>>(*a, N);
   return (int)cudaGetLastError();
 }
 
-// is_b selects the B mode (list 1, bi, six merge candidates)
+template <bool B>
+static int launch_cu_rd(const hm::CuRdArgs* a, int s, int N, cudaStream_t st) {
+  switch (s) {
+    case 8: return launch_cu_rd_s<8, B>(a, N, st);
+    case 16: return launch_cu_rd_s<16, B>(a, N, st);
+    case 32: return launch_cu_rd_s<32, B>(a, N, st);
+    case 64: return launch_cu_rd_s<64, B>(a, N, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// is_b selects the B mode (list 1, bi, six merge candidates); rect shapes
+// exist from 16x16 up (RECT_SIZES)
 extern "C" int hm_cu_rd(const hm::CuRdArgs* a, int s, int N, int is_b,
                         void* stream) {
-  if (N <= 0 || a->nx <= 0 || N % a->nx) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || a->nx <= 0 || N % a->nx || (a->has_rect && s < 16))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return is_b ? launch_cu_rd<true>(a, s, N, st) : launch_cu_rd<false>(a, s, N, st);
+}
+
+// K8's dynamic shared memory per CTA in bytes (0 for a size it lacks)
+extern "C" size_t hm_cu_rd_smem_bytes(int s, int is_b) {
+  switch (s * 2 + (is_b != 0)) {
+    case 16: return sizeof(hm::CuRdSmem<8, false>);
+    case 17: return sizeof(hm::CuRdSmem<8, true>);
+    case 32: return sizeof(hm::CuRdSmem<16, false>);
+    case 33: return sizeof(hm::CuRdSmem<16, true>);
+    case 64: return sizeof(hm::CuRdSmem<32, false>);
+    case 65: return sizeof(hm::CuRdSmem<32, true>);
+    case 128: return sizeof(hm::CuRdSmem<64, false>);
+    case 129: return sizeof(hm::CuRdSmem<64, true>);
+    default: return 0;
+  }
 }
 
 // the argument structs' sizes, checked against their ctypes mirrors

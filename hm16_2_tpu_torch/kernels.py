@@ -199,6 +199,18 @@ def resource_usage():
         return f.read()
 
 
+def dynamic_smem():
+    """Dynamic shared memory per CTA in bytes of K6 and of K8 by CU size
+    and mode, as the library launches them (ptxas reports static shared
+    memory only)."""
+    lib = _load()
+    out = {"subpel_kernel": lib.hm_subpel_smem_bytes()}
+    for s in (8, 16, 32, 64):
+        for b, mode in ((0, "P"), (1, "B")):
+            out[f"cu_rd_kernel<{s}, {mode}>"] = lib.hm_cu_rd_smem_bytes(s, b)
+    return out
+
+
 def _load():
     global _lib
     if _lib is not None:
@@ -238,6 +250,10 @@ def _load():
         fn.restype = ctypes.c_int
     lib.hm_error_string.argtypes = [ctypes.c_int]
     lib.hm_error_string.restype = ctypes.c_char_p
+    lib.hm_cu_rd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.hm_cu_rd_smem_bytes.restype = ctypes.c_size_t
+    lib.hm_subpel_smem_bytes.argtypes = []
+    lib.hm_subpel_smem_bytes.restype = ctypes.c_size_t
     for name, mirror in _STRUCTS.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [], ctypes.c_size_t

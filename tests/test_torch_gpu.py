@@ -95,6 +95,17 @@ def test_me_edges_equal_plain(cuda):
 
 
 @pytest.mark.gpu
+def test_k6_k8_edges_equal_plain(cuda):
+    """K6 and K8 (P and B, every CU size) equal their plain versions bit
+    for bit on the edge inputs of the redesign (zero, maximum,
+    checkerboard and edge-line references at 8-12 bits; flat, one-CTU and
+    far-prior plans), on 10- and 12-bit 1080p references and in the P and
+    B plans of a flat 1080p picture with four references."""
+    import chip_smoke
+    assert chip_smoke.check_k6_k8_edges(cuda) > 0
+
+
+@pytest.mark.gpu
 def test_ldp_on_card_equals_cpu(cuda):
     """A low-delay P stream (IDR + one GOP of four P pictures) on the card
     equals the CPU plain path; every kernel of the path was launched."""
