@@ -11,10 +11,14 @@ of a 1080p picture without a plan (four references, and the one reference
 of the per-CU search's IPPP pictures, a non-zero prior), and holds K5 and
 K7 to theirs on the edge inputs their invariants rest on (flat pictures,
 ramps, 12-bit noise, priors of +-70, a row band; a flat 1080p picture;
-`check_me_edges`) and K6 and K8 to theirs on the redesign's edge inputs
+`check_me_edges`), K6 and K8 to theirs on the redesign's edge inputs
 (zero, maximum, checkerboard and edge-line references at 8-12 bits; flat,
 one-CTU and capped-prior P and B plans; 10- and 12-bit references and flat
-P and B plans at 1080p; `check_k6_k8_edges`), then drives the port's paths:
+P and B plans at 1080p; `check_k6_k8_edges`) and K2 and K3 to theirs on
+theirs (tied SATDs and costs, levels at the 32767 cap, a wrapped 12-bit
+SSE, a clamped dequant, 12-bit noise, batches no CTA's group divides;
+`check_intra_edges`), prints K2's and K3's time by case beside the bound,
+then drives the port's paths:
 
 - all-intra (HM's common-test All Intra Main configuration: QP 32, 8-bit
   4:2:0, deblocking, SAO, MD5 picture hash) over three 1080p frames through
@@ -669,6 +673,102 @@ def check_me_edges(dev, size=(64, 128), big=(1080, 1920)):
 
 
 # the inputs on which the K6 / K8 redesign's invariants rest
+INTRA_EDGE_CASES = ("flat", "max10_qp0", "max12_qp0", "max8_qp51",
+                    "noise12")
+INTRA_EDGE_N = 37       # blocks: no multiple of a CTA's 32, 16, 8, 4 or 2
+
+
+def intra_edge_inputs(case, s, n=INTRA_EDGE_N):
+    """Seeded numpy arguments of K2 and K3 in one edge case at block size s:
+    {"bufs": (n, 2, 4s+1), "blocks": (n, s, s), "bd", "qp", "modes1": (n, 1)
+    luma modes for K3, "dm": (n,) chroma DM modes}.  "flat" (8-bit, QP 32,
+    every reference and sample 128: the 35 SATDs tie, and so do the RD
+    costs); "max10_qp0", "max12_qp0" (10- and 12-bit, QP 0: even blocks at
+    the maximum over zero references, odd ones the reverse; the flat
+    residual's DC level reaches the 32767 cap at s = 32 (10-bit) and from
+    s = 8 (12-bit), and at 12 bits the capped level reconstructs so little
+    that the 32x32 SSE passes 2^31 and wraps in int32); "max8_qp51" (the
+    same at 8 bits and QP 51, where the dequantised DC passes 32767 and is
+    clamped, from s = 8); "noise12" (12-bit random blocks and references,
+    QP 40: distinct SATDs and costs)."""
+    ci = INTRA_EDGE_CASES.index(case)
+    bd, qp = {"flat": (8, 32), "max10_qp0": (10, 0), "max12_qp0": (12, 0),
+              "max8_qp51": (8, 51), "noise12": (12, 40)}[case]
+    rng = np.random.default_rng(81 + 7 * ci + s)
+    maxv, B = (1 << bd) - 1, 4 * s + 1
+    if case == "flat":
+        u = np.full((n, B), 128)
+        blocks = np.full((n, s, s), 128)
+    elif case == "noise12":
+        u = rng.integers(0, maxv + 1, (n, B))
+        blocks = rng.integers(0, maxv + 1, (n, s, s))
+    else:
+        odd = (np.arange(n) % 2 == 1)
+        u = np.where(odd[:, None], maxv, 0) * np.ones((n, B), np.int64)
+        blocks = np.where(odd[:, None, None], 0, maxv) * \
+            np.ones((n, s, s), np.int64)
+    f = u.copy()
+    f[:, 1:-1] = (u[:, 2:] + 2 * u[:, 1:-1] + u[:, :-2] + 2) >> 2
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
+    return {"bufs": i32(np.stack([u, f], 1)), "blocks": i32(blocks),
+            "bd": bd, "qp": qp, "modes1": i32(rng.integers(0, 35, (n, 1))),
+            "dm": i32(rng.integers(0, 35, n))}
+
+
+def intra_edge_lam(qp):
+    """The AI plan's float32 lambda at QP qp."""
+    return float(np.float32(0.57 * 2.0 ** ((qp - 12) / 3.0)))
+
+
+def check_intra_edges(dev):
+    """K2 (RD at both rounding offsets, SATD-only, the analysis mode) and
+    K3 (chroma K = 5 at s = 4-16, a luma mode per block at s = 4-32, DST at
+    s = 4) on the card against their plain versions on the same card, every
+    output equal bit for bit, on intra_edge_inputs (the CPU tests hold the
+    plain versions to the JAX package on the same inputs).  Raises on the
+    first difference; times nothing."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import intra_rd as R
+    from hm16_2_tpu_torch.parallel import mesh as M
+    n_eq = 0
+
+    def same(label, got, want):
+        nonlocal n_eq
+        _compare(f"intra edge {label}", _flat(got), _flat(want))
+        n_eq += 1
+
+    for case in INTRA_EDGE_CASES:
+        for s in (4, 8, 16, 32):
+            e = intra_edge_inputs(case, s)
+            bufs, blocks = (torch.from_numpy(e[k]).to(dev)
+                            for k in ("bufs", "blocks"))
+            bd, qp, lam = e["bd"], e["qp"], intra_edge_lam(e["qp"])
+            k = R.NUM_RD_CANDS[s]
+            label = f"{case} s={s}"
+            for inter in (False, True):
+                a = (bufs, blocks, lam, s, bd, k, qp, True, s == 4, True,
+                     inter)
+                same(f"{label} K2 RD inter={inter}", K.intra_size_rd(*a),
+                     R._size_rd_plain(*a))
+            same(f"{label} K2 SATD-only",
+                 K.intra_premodes(bufs, blocks, s, bd),
+                 R._premodes_plain(bufs, blocks, s, bd))
+            same(f"{label} analysis", K.analysis_step(blocks, bufs, qp, s, bd),
+                 M._analysis_step_plain(blocks, bufs, qp, s, bd))
+            m1 = torch.from_numpy(e["modes1"]).to(dev)
+            a = (bufs, blocks, m1, s, bd, qp, True, s == 4)
+            same(f"{label} K3 luma", K.intra_cand_rd(*a), R._cand_rd_plain(*a))
+            if s <= 16:
+                m5 = R._chroma_modes5_plain(torch.from_numpy(e["dm"]).to(dev))
+                a = (bufs, blocks, m5, s, bd, qp, False, False)
+                same(f"{label} K3 chroma", K.intra_cand_rd(*a),
+                     R._cand_rd_plain(*a))
+    print(f"K2/K3 edge inputs ({', '.join(INTRA_EDGE_CASES)}; s = 4-32, "
+          f"{INTRA_EDGE_N} blocks): {n_eq} kernel outputs equal their plain "
+          f"versions  [{CARD}]", flush=True)
+    return n_eq
+
+
 K6_EDGE_CONTENTS = ("zero", "max", "checker", "edge_lines")
 K6_EDGE_SIZES = ((8, 8), (24, 40), (72, 136))
 PLAN_EDGE_CASES = ("flat", "one_ctu", "far10")
@@ -875,6 +975,20 @@ def report_k6_k8(stats, refs8):
           f"8x8 filters over 4 edge-padded 8-bit {w}x{h} refs "
           f"{k6_conv_yardstick(refs8):.3f} ms; K6 "
           f"{stats['subpel_planes']['ms']:.3f} ms  [{CARD}]", flush=True)
+
+
+def report_k2_k3(stats):
+    """Print K2's time by case (RD and SATD-only by size, the inter offset,
+    the analysis mode) and K3's by case, each beside its bound, from the
+    cases of check_kernels, check_inter_kernels and check_band_kernels in
+    `stats` (CUDA events around the wrapper's launches, host enqueue
+    included; hm16_2_tpu_torch/tools/intra_bench.py gives the kernels' own
+    device time at the same shapes)."""
+    for k in ("intra_size_rd", "intra_cand_rd", "analysis_step"):
+        print(f"{k} ms (kernel / bound): " + "; ".join(
+            f"{c} {v[0]:.3f} / {v[2]:.4f}"
+            for c, v in stats[k]["cases"].items()) + f"  [{CARD}]",
+            flush=True)
 
 
 def _kernel_split(label, fn, top=4):
@@ -1479,7 +1593,10 @@ def main():
     path, secs = K.build()
     print(f"kernels built in {secs:.1f} s: {os.path.relpath(path, ROOT)}  "
           f"[{CARD}]", flush=True)
-    for line in _ptxas(K.resource_usage(), ("me_argmin_kernel",
+    for line in _ptxas(K.resource_usage(), ("size_rd_kernel",
+                                            "cand_rd_kernel",
+                                            "analysis_kernel",
+                                            "me_argmin_kernel",
                                             "me_refine_kernel",
                                             "frac_refine_kernel",
                                             "subpel_kernel",
@@ -1513,6 +1630,9 @@ def main():
     check_k6_k8_edges(dev)
     report_k6_k8(stats, torch.from_numpy(np.stack(
         [frames[k][0] for k in (4, 3, 2, 1)]).astype("int32")).to(dev))
+    # K2 and K3 likewise, and their time by case
+    check_intra_edges(dev)
+    report_k2_k3(stats)
 
     # all-intra: warm-up frame, then a timed 3-frame encode_stream
     from hm16_2_tpu_torch.encode.intra_rd import fetch_plan

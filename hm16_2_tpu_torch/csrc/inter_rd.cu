@@ -431,26 +431,6 @@ struct CuRdSmem {
   CuState st[G];
 };
 
-// RB outputs (rows r0, r0 + T/RB, ..., column c) of the T x T product
-// X Y (int32, any order: integers); four of X's row entries per 16-byte
-// load, Y's column read across the warp's lanes
-template <int T, int RB>
-__device__ __forceinline__ void mm_item(const int* X, const int* Y, int r0,
-                                        int c, int (&acc)[RB]) {
-#pragma unroll
-  for (int q = 0; q < RB; ++q) acc[q] = 0;
-#pragma unroll
-  for (int j = 0; j < T; j += 4) {
-    int y0 = Y[j * T + c], y1 = Y[(j + 1) * T + c];
-    int y2 = Y[(j + 2) * T + c], y3 = Y[(j + 3) * T + c];
-#pragma unroll
-    for (int q = 0; q < RB; ++q) {
-      int4 x = *(const int4*)(X + (r0 + q * (T / RB)) * T + j);
-      acc[q] += x.x * y0 + x.y * y1 + x.z * y2 + x.w * y3;
-    }
-  }
-}
-
 // G CUs of size S per CTA.  P mode (B false): the merge set is the left
 // and above neighbours' list-0 winners, the prior, zero; the kinds merge and
 // uni-L0.  B mode: six bi merge candidates (the A1 / B1 / B0 / A0

@@ -200,11 +200,18 @@ def resource_usage():
 
 
 def dynamic_smem():
-    """Dynamic shared memory per CTA in bytes of K6 and of K8 by CU size
-    and mode, as the library launches them (ptxas reports static shared
-    memory only)."""
+    """Dynamic shared memory per CTA in bytes of K2 and K3 by block size and
+    mode, of K6, and of K8 by CU size and mode, as the library launches them
+    (ptxas reports static shared memory only)."""
     lib = _load()
-    out = {"subpel_kernel": lib.hm_subpel_smem_bytes()}
+    out = {}
+    for s in (4, 8, 16, 32):
+        for op, kern in enumerate(("size_rd_kernel<{}, RD>",
+                                   "size_rd_kernel<{}, SATD>",
+                                   "cand_rd_kernel<{}>",
+                                   "analysis_kernel<{}>")):
+            out[kern.format(s)] = lib.hm_intra_smem_bytes(s, op)
+    out["subpel_kernel"] = lib.hm_subpel_smem_bytes()
     for s in (8, 16, 32, 64):
         for b, mode in ((0, "P"), (1, "B")):
             out[f"cu_rd_kernel<{s}, {mode}>"] = lib.hm_cu_rd_smem_bytes(s, b)
@@ -254,6 +261,8 @@ def _load():
     lib.hm_cu_rd_smem_bytes.restype = ctypes.c_size_t
     lib.hm_subpel_smem_bytes.argtypes = []
     lib.hm_subpel_smem_bytes.restype = ctypes.c_size_t
+    lib.hm_intra_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.hm_intra_smem_bytes.restype = ctypes.c_size_t
     for name, mirror in _STRUCTS.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [], ctypes.c_size_t

@@ -106,6 +106,17 @@ def test_k6_k8_edges_equal_plain(cuda):
 
 
 @pytest.mark.gpu
+def test_intra_edges_equal_plain(cuda):
+    """K2 (RD at both rounding offsets, SATD-only, the analysis mode) and
+    K3 (chroma, a luma mode per block) equal their plain versions bit for
+    bit on the edge inputs of the redesign (tied SATDs and costs, levels at
+    the 32767 cap, a wrapped 12-bit SSE, a clamped dequant, 12-bit noise;
+    37 blocks at every size)."""
+    import chip_smoke
+    assert chip_smoke.check_intra_edges(cuda) > 0
+
+
+@pytest.mark.gpu
 def test_ldp_on_card_equals_cpu(cuda):
     """A low-delay P stream (IDR + one GOP of four P pictures) on the card
     equals the CPU plain path; every kernel of the path was launched."""
