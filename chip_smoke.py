@@ -17,8 +17,10 @@ one-CTU and capped-prior P and B plans; 10- and 12-bit references and flat
 P and B plans at 1080p; `check_k6_k8_edges`) and K2 and K3 to theirs on
 theirs (tied SATDs and costs, levels at the 32767 cap, a wrapped 12-bit
 SSE, a clamped dequant, 12-bit noise, batches no CTA's group divides;
-`check_intra_edges`), prints K2's and K3's time by case beside the bound,
-then drives the port's paths:
+`check_intra_edges`) and K4 and K7's list picks to theirs inside AI, P and
+B plans at 232x152 (every border rule) and 1024x768, flat 1080p plans,
+banded plans and tied cost grids (`check_k4_picks_edges`), prints K2's and
+K3's time by case beside the bound, then drives the port's paths:
 
 - all-intra (HM's common-test All Intra Main configuration: QP 32, 8-bit
   4:2:0, deblocking, SAO, MD5 picture hash) over three 1080p frames through
@@ -267,36 +269,28 @@ def check_kernels(frame, dev, reps=5):
     nby, nbx = {}, {}
     for s in (4, 8, 16, 32, 64):
         nby[s], nbx[s] = H // s, W // s
+    satd32 = rd[32][3].reshape(nby[32], nbx[32], 35)
+    dms = [rd[s][0] for s in (8, 16, 32)]
+    modes5, m64, pm64 = case(
+        "plan_dp", "pre: chroma modes, mode64",
+        lambda: K.plan_pre(dms, satd32, nby[64], nbx[64]),
+        lambda: R._plan_pre_plain(dms, satd32, nby[64], nbx[64]),
+        (dms, satd32), sum(d.numel() for d in dms) * 5 * 4
+        + nby[64] * nbx[64] * 35 * 8)
     db = {}
-    for s in (8, 16, 32):
+    for s, m5 in zip((8, 16, 32), modes5):
         cs = s // 2
-        modes5 = case("plan_dp", f"chroma modes s={s}",
-                      lambda: K.chroma_modes5(rd[s][0]),
-                      lambda: R._chroma_modes5_plain(rd[s][0]), rd[s][0],
-                      nby[s] * nbx[s] * 5 * 4)
         out = []
         for label, (bufs, blocks) in (("cb", chroma[cs]), ("cr", crb[cs])):
             n = blocks.shape[0]
             out += case("intra_cand_rd", f"chroma {label} s={cs} K=5",
-                        lambda: K.intra_cand_rd(bufs, blocks, modes5, cs, 8,
+                        lambda: K.intra_cand_rd(bufs, blocks, m5, cs, 8,
                                                 cqp, False, False),
-                        lambda: R._cand_rd_plain(bufs, blocks, modes5, cs, 8,
+                        lambda: R._cand_rd_plain(bufs, blocks, m5, cs, 8,
                                                  cqp, False, False),
-                        (bufs, blocks, modes5),
+                        (bufs, blocks, m5),
                         n * 5 * (4 * cs * cs + 8 * cs ** 3 + 16 * cs * cs))
         db[s] = out
-    folds = {}
-    for s in (8, 16, 32):
-        cost = rd[s][1].reshape(nby[s], nbx[s])
-        folds[s] = case("plan_dp", f"chroma fold s={s}",
-                        lambda: K.chroma_fold(*db[s], cost, lam, cw),
-                        lambda: R._chroma_fold_plain(*db[s], cost, lam, cw),
-                        (db[s], cost), nby[s] * nbx[s] * 5 * 12)
-    satd32 = rd[32][3].reshape(nby[32], nbx[32], 35)
-    m64, pm64 = case("plan_dp", "mode64",
-                     lambda: K.mode64(satd32, nby[64], nbx[64]),
-                     lambda: R._mode64_plain(satd32, nby[64], nbx[64]),
-                     satd32, nby[64] * nbx[64] * 35 * 8)
     idx = torch.as_tensor([(i * nbx[32] + j) for i in range(2 * nby[64])
                            for j in range(2 * nbx[64])], device=dev)
     b32, bl32 = luma[32][0][idx], luma[32][1][idx]
@@ -308,15 +302,14 @@ def check_kernels(frame, dev, reps=5):
                     (b32, bl32, pm64), bl32.shape[0] * (
                         4 * 32 * 32 + 8 * 32 ** 3 + 16 * 32 * 32))
     mode_s = {s: rd[s][0].reshape(nby[s], nbx[s]) for s in (4, 8, 16, 32)}
-    cost_s = {4: rd[4][1].reshape(nby[4], nbx[4])}
-    cost_s.update({s: folds[s][0] for s in (8, 16, 32)})
+    cost_s = {s: rd[s][1].reshape(nby[s], nbx[s]) for s in (4, 8, 16, 32)}
     cand_s = {s: rd[s][2].reshape(nby[s], nbx[s], 3) for s in (4, 8, 16, 32)}
-    cmode_s = {s: folds[s][2] for s in (8, 16, 32)}
-    dp_args = (lam, H, W, mode_s, cost_s, cand_s, cmode_s, folds[32][1],
+    dp_args = (lam, cw, H, W, mode_s, cost_s, cand_s, db,
                d64[:, 0].contiguous(), b64[:, 0].contiguous(), m64)
-    case("plan_dp", "DP + packed plan", lambda: K.plan_dp(*dp_args),
-         lambda: R._plan_dp_plain(*dp_args), dp_args[3:],
-         (H // 4) * (W // 4) * 7 * 8)
+    case("plan_dp", "CTU: fold, DP, packed plan", lambda: K.plan_dp(*dp_args),
+         lambda: R._plan_ctu_plain(*dp_args), dp_args[4:],
+         sum(nby[s] * nbx[s] for s in (8, 16, 32)) * 5 * 12
+         + (H // 4) * (W // 4) * 7 * 8)
     return stats
 
 
@@ -358,33 +351,31 @@ def check_inter_kernels(frames, dev, reps=3, stats=None):
                lambda: P._subpel_planes_plain(refs, 8, H, W), refs,
                nref * 16 * (H + 2 * P.MARGIN + 1) * (W + 2 * P.MARGIN + 1)
                * 32)
+    qpel = {}
+    for s, part, bh, bw, Ny, Nx in P._shapes(H, W, True):
+        p4 = (4 * P._me_mvp(mvp8, s, part)[:, :Ny, :Nx]).contiguous()
+        mv = me[(s, part)]
+        mvq, satd = case(
+            "inter_uni", f"q-pel refine {bh}x{bw}",
+            lambda: K.frac_refine(sub, cur, mv, p4, lams, bh, bw),
+            lambda: P._frac_refine_plain(sub, cur, mv, p4, lams, bh, bw),
+            (sub, cur, mv, p4), nref * Ny * Nx * 49 * bh * bw * 10)
+        qpel[(s, part)] = (mvq, satd, p4.reshape(nref, -1, 2), map0, nref)
+    entries = list(qpel.values())
+    picks = dict(zip(qpel, case(
+        "inter_pick", f"P picks, {len(entries)} shapes",
+        lambda: K.uni_select_all(entries, lams),
+        lambda: P._uni_select_all_plain(entries, lams), entries,
+        sum(nref * e[1].shape[1] * 12 for e in entries))))
     recs, costs = {}, {}
     for s in P.SIZES:
         ny, nx = H // s, W // s
         recs[s] = costs[s] = None
         if not (ny and nx):
             continue
-        shapes = [(0, s, s, ny, nx)]
-        if (s, 1) in me:
-            shapes += [(1, s // 2, s, 2 * ny, nx), (2, s, s // 2, ny, 2 * nx)]
-        unis = {}
-        for part, bh, bw, Ny, Nx in shapes:
-            p4 = (4 * P._me_mvp(mvp8, s, part)[:, :Ny, :Nx]).contiguous()
-            mv = me[(s, part)]
-            mvq, satd = case(
-                "inter_uni", f"q-pel refine {bh}x{bw}",
-                lambda: K.frac_refine(sub, cur, mv, p4, lams, bh, bw),
-                lambda: P._frac_refine_plain(sub, cur, mv, p4, lams, bh,
-                                             bw), (sub, cur, mv, p4),
-                nref * Ny * Nx * 49 * bh * bw * 10)
-            p4 = p4.reshape(nref, -1, 2)
-            unis[part] = case(
-                "inter_uni", f"list pick {bh}x{bw}",
-                lambda: K.uni_select(mvq, satd, p4, map0, nref, lams),
-                lambda: P._uni_select_plain(mvq, satd, p4, map0, nref, lams),
-                (mvq, satd, p4, map0), nref * Ny * Nx * 12)
-            if part == 0:
-                tmvp4 = p4[0].contiguous()
+        unis = {part: picks[(s, part)] for part in (0, 1, 2)
+                if (s, part) in picks}
+        tmvp4 = qpel[(s, 0)][2][0].contiguous()
         intra = None
         if s <= 32:
             bufs, blocks = R._ref_buffers_plain(cur, s, 8, True, H, W)
@@ -444,30 +435,27 @@ def check_b_kernels(frames, dev, reps=3, stats=None,
     mvp8 = P._mvp_full(mvn16, dists)
     me = K.inter_me(cur, refs, mvp8, lams, H, W, True)
     sub = K.subpel_planes(refs, 8, H, W)
+    qpel = {}
+    for s, part, bh, bw, Ny, Nx in P._shapes(H, W, True):
+        p4 = (4 * P._me_mvp(mvp8, s, part)[:, :Ny, :Nx]).contiguous()
+        mvq, satd = K.frac_refine(sub, cur, me[(s, part)], p4, lams, bh, bw)
+        qpel[(s, part)] = (mvq, satd, p4.reshape(len(order), -1, 2))
+    keys = [(k, lx) for k in qpel for lx in (0, 1)]
+    entries = [qpel[k] + (maps[lx], nref[lx]) for k, lx in keys]
+    picks = dict(zip(keys, case(
+        "inter_pick", f"B picks, {len(entries)} shapes x lists",
+        lambda: K.uni_select_all(entries, lams),
+        lambda: P._uni_select_all_plain(entries, lams), entries,
+        sum(len(order) * e[1].shape[1] * 12 for e in entries))))
     recs, costs = {}, {}
     for s in P.SIZES:
         ny, nx = H // s, W // s
         recs[s] = costs[s] = None
         if not (ny and nx):
             continue
-        shapes = [(0, s, s, ny, nx)]
-        if (s, 1) in me:
-            shapes += [(1, s // 2, s, 2 * ny, nx), (2, s, s // 2, ny, 2 * nx)]
-        unis = {}
-        for part, bh, bw, Ny, Nx in shapes:
-            p4 = (4 * P._me_mvp(mvp8, s, part)[:, :Ny, :Nx]).contiguous()
-            mvq, satd = K.frac_refine(sub, cur, me[(s, part)], p4, lams, bh,
-                                      bw)
-            p4 = p4.reshape(len(order), -1, 2)
-            if part == 0:
-                tmvp4 = [p4[f].contiguous() for f in first]
-            unis[part] = [case(
-                "inter_uni", f"list {lx} pick {bh}x{bw}",
-                lambda: K.uni_select(mvq, satd, p4, maps[lx], nref[lx], lams),
-                lambda: P._uni_select_plain(mvq, satd, p4, maps[lx],
-                                            nref[lx], lams),
-                (mvq, satd, p4, maps[lx]), len(order) * Ny * Nx * 12)
-                for lx in (0, 1)]
+        unis = {part: [picks[((s, part), lx)] for lx in (0, 1)]
+                for part in (0, 1, 2) if ((s, part), 0) in picks}
+        tmvp4 = [qpel[(s, 0)][2][f].contiguous() for f in first]
         u0, u1 = unis[0]
         a1 = (sub, cur, u1["mv"], u1["uref"], u1["anchor"], u0["uref"],
               u0["mv"], lams, s)
@@ -841,13 +829,36 @@ def plan_edge_args(case, is_b, size=None):
             "bd": bd, "is_b": is_b}
 
 
-@contextlib.contextmanager
-def _held_to_plain(check):
-    """Inside the block the plan's K6 and K8 calls run the kernel and then
-    the plain version on the same inputs, and check(label, got, want)."""
+def _k6_k8_pairs():
+    """(module, wrapper name, label, kernel, plain, index of the size
+    argument or None) of K6 and K8 inside the P/B plan."""
     from hm16_2_tpu_torch import kernels as K
     from hm16_2_tpu_torch.encode import inter_plan as P
-    saved = P.subpel_planes, P.cu_rd, P.cu_rd_b
+    return [(P, "subpel_planes", "K6", K.subpel_planes,
+             P._subpel_planes_plain, None),
+            (P, "cu_rd", "K8 P", K.cu_rd, P._cu_rd_plain, 2),
+            (P, "cu_rd_b", "K8 B", K.cu_rd_b, P._cu_rd_b_plain, 2)]
+
+
+def _k4_pick_pairs():
+    """The same of K4 (both plans) and K7's list picks."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import inter_plan as P
+    from hm16_2_tpu_torch.encode import intra_rd as R
+    return [(R, "plan_pre", "K4 pre", K.plan_pre, R._plan_pre_plain, None),
+            (R, "plan_dp", "K4 CTU", K.plan_dp, R._plan_ctu_plain, None),
+            (P, "emit", "K4 P/B", K.emit_inter_plan, P._emit_plain, None),
+            (P, "uni_select_all", "K7 picks", K.uni_select_all,
+             P._uni_select_all_plain, None)]
+
+
+@contextlib.contextmanager
+def _held_to_plain(check, pairs=None):
+    """Inside the block each wrapper of `pairs` (default: the plan's K6 and
+    K8) runs the kernel and then the plain version on the same inputs, and
+    check(label, got, want)."""
+    pairs = _k6_k8_pairs() if pairs is None else pairs
+    saved = [(mod, name, getattr(mod, name)) for mod, name, *_ in pairs]
 
     def held(label, kern, plain, size_at):
         def run(*a):
@@ -857,25 +868,30 @@ def _held_to_plain(check):
             return got
         return run
 
-    P.subpel_planes = held("K6", K.subpel_planes, P._subpel_planes_plain,
-                           None)
-    P.cu_rd = held("K8 P", K.cu_rd, P._cu_rd_plain, 2)
-    P.cu_rd_b = held("K8 B", K.cu_rd_b, P._cu_rd_b_plain, 2)
+    for mod, name, label, kern, plain, size_at in pairs:
+        setattr(mod, name, held(label, kern, plain, size_at))
     try:
         yield
     finally:
-        P.subpel_planes, P.cu_rd, P.cu_rd_b = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
-def run_plan(args, dev):
-    """The port's P or B plan on `dev` from plan_edge_args' arguments."""
+def run_plan(args, dev, mesh=None):
+    """The port's P or B plan on `dev` from plan_edge_args' arguments; with
+    a row mesh, its integer ME banded over the mesh."""
     from hm16_2_tpu_torch.encode import inter_plan as P
+    from hm16_2_tpu_torch.parallel import plan_shard as PS
     t = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    cur, refs, mvn16, dists = (t(args[k]) for k in ("cur", "refs", "mvn16",
+                                                    "dists"))
+    me = None if mesh is None else PS.sharded_int_me(
+        mesh, cur, refs, mvn16, dists, args["lams"], args["h"], args["w"])
     return P._plan_device(
-        t(args["cur"]), t(args["refs"]), t(args["mvn16"]), t(args["dists"]),
-        args["lam"], args["lams"], args["qp"], t(args["map0"]),
-        args["nref0"], t(args["map1"]), args["nref1"], h=args["h"],
-        w=args["w"], bd=args["bd"], nmerge=5, is_b=args["is_b"])
+        cur, refs, mvn16, dists, args["lam"], args["lams"], args["qp"],
+        t(args["map0"]), args["nref0"], t(args["map1"]), args["nref1"], me,
+        h=args["h"], w=args["w"], bd=args["bd"], nmerge=5,
+        is_b=args["is_b"])
 
 
 def check_k6_k8_edges(dev, big=(1080, 1920)):
@@ -927,6 +943,202 @@ def check_k6_k8_edges(dev, big=(1080, 1920)):
     return n_eq
 
 
+# K4's and the picks' edge geometries: 1080p (1080 % 64 = 56, border
+# CTUs at the bottom), 232x152 (232 % 64 = 40: nbx32 = 7 against
+# 2 * nbx64 = 6, nby16 = 9 against 8, nby8 = 19 against 18), 1024x768
+# (whole CTUs)
+K4_EDGE_SIZES = ((1080, 1920), (152, 232), (768, 1024))
+K4_EDGE_CASES = ("moving", "flat", "moving10")
+
+
+def k4_intra_args(case, size):
+    """Seeded numpy arguments of the AI plan (`intra_rd._plan_device`,
+    chroma on, strong smoothing) at size (h, w): "moving" (make_yuv
+    content, 8-bit, QP 32), "flat" (every sample 128: equal costs meet
+    the strict DP comparisons and the first-least argmins), "moving10"
+    (10-bit make_yuv content, QP 44)."""
+    h, w = size
+    bd = 10 if case == "moving10" else 8
+    if case == "flat":
+        y, cb, cr = (np.full(sh, 128) for sh in ((h, w), (h // 2, w // 2),
+                                                 (h // 2, w // 2)))
+    else:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from make_fixtures import make_yuv
+        y, cb, cr = make_yuv(w, h, 1, seed=71, bits=bd)[0]
+    qp = QP + 6 * (bd - 8)
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
+    return {"y": i32(y), "cb": i32(cb), "cr": i32(cr),
+            "lam": float(np.float32(0.57 * 2.0 ** ((QP - 12) / 3.0))),
+            "cw": float(np.float32(2.0 ** (1 / 3))),
+            "kw": dict(h=h, w=w, bd=bd, cbd=bd, strong=True, qp=qp,
+                       cqp0=qp - 1, cqp1=qp - 2, chroma=True)}
+
+
+def run_intra_plan(args, dev):
+    """The port's AI plan on `dev` from k4_intra_args' arguments."""
+    from hm16_2_tpu_torch.encode import intra_rd as R
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return R._plan_device(t(args["y"]), t(args["cb"]), t(args["cr"]),
+                          args["lam"], args["cw"], **args["kw"])
+
+
+def k4_plan_args(case, is_b, size):
+    """plan_edge_args(case, is_b, size) cut to short lists of live
+    references: P two (POC distances 1, 2), B two past in list 0 and one
+    future in list 1."""
+    a = plan_edge_args(case, is_b, size)
+    n = 3 if is_b else 2
+    i32 = lambda v: np.asarray(v, dtype=np.int32)
+    a.update(refs=a["refs"][:n], dists=a["dists"][:n],
+             map0=i32([0, 1, 0, 0]), nref0=2)
+    if is_b:
+        a.update(map1=i32([2, 0, 0, 0]), nref1=1)
+    return a
+
+
+def k4_tied_args(h, w, dev, chroma):
+    """plan_dp's arguments at h x w where every DP level ties exactly (lam
+    0.5: each parent's cost equals the sum of its children plus the split
+    or NxN bits, the 64x64 cost the split's), random modes and candidates;
+    with chroma, K3's outputs tie the first four chroma candidates (the
+    fifth is dearer) and the fold adds 2.0 at every size."""
+    rng = np.random.default_rng(h + w + chroma)
+    sh = {s: (h // s, w // s) for s in (4, 8, 16, 32, 64)}
+    add = 2.0 if chroma else 0.0
+    val = {4: 1.0, 8: 6.0 - add, 16: 25.5 - add, 32: 103.5 - add}
+    f32 = lambda v, shape: torch.full(shape, v, dtype=torch.float32,
+                                      device=dev)
+    i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)
+    cost_s = {s: f32(val[s], sh[s]) for s in val}
+    mode_s = {s: i32(rng.integers(0, 35, sh[s])) for s in val}
+    cand_s = {s: i32(rng.integers(0, 35, sh[s] + (3,))) for s in val}
+    db_s = {}
+    if chroma:
+        for s in (8, 16, 32):
+            n = sh[s][0] * sh[s][1]
+            d = f32(0.0, (n, 5))
+            d[:, 4] = 100.0
+            db_s[s] = [d, f32(0.0, (n, 5)), d.clone(), f32(0.0, (n, 5))]
+    n64 = sh[64][0] * sh[64][1]
+    cc = (415.5 - 4.0 - 4 * add) / 4
+    return (0.5, 1.0, h, w, mode_s, cost_s, cand_s, db_s,
+            f32(cc, (4 * n64,)), f32(0.0, (4 * n64,)),
+            i32(rng.integers(0, 35, sh[64])))
+
+
+def k4_tied_inter_args(h, w, dev):
+    """emit_inter_plan's arguments at h x w where every DP level ties (lam
+    0.5), with random records."""
+    from hm16_2_tpu_torch.encode.inter_plan import NREC, SIZES
+    rng = np.random.default_rng(h * w)
+    val = {8: 1.0, 16: 5.5, 32: 23.5, 64: 95.5}
+    recs, costs = {}, {}
+    for s in SIZES:
+        n = (h // s) * (w // s)
+        costs[s] = torch.full((n,), val[s], dtype=torch.float32, device=dev) \
+            if n else None
+        recs[s] = torch.from_numpy(rng.integers(-1, 5, (n, NREC)).astype(
+            np.int32)).to(dev) if n else None
+    return recs, costs, 0.5, h, w
+
+
+def k4_tied_picks(h, w, dev):
+    """uni_select_all's entries at the CU shapes of an h x w picture, four
+    references: MVs equal to their anchors and equal SATDs (nref 1 and 2:
+    the first of equal costs wins), then near-ties (SATDs of 100 or 101,
+    MVDs of -1..1) with nref 3 and 4 and reordered lists."""
+    from hm16_2_tpu_torch.encode.inter_plan import _shapes
+    rng = np.random.default_rng(h + 2 * w)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    out = []
+    for k, (s, part, bh, bw, Ny, Nx) in enumerate(_shapes(h, w, True)):
+        N = Ny * Nx
+        p4 = rng.integers(-300, 300, (4, N, 2)).astype(np.int32)
+        if k % 2 == 0:
+            mvq, satd = p4.copy(), np.full((4, N), 100.0, np.float32)
+        else:
+            mvq = p4 + rng.integers(-1, 2, (4, N, 2)).astype(np.int32)
+            satd = rng.integers(100, 102, (4, N)).astype(np.float32)
+        for nref, lmap in ((1, [0, 1, 2, 3]), (2, [0, 1, 2, 3]),
+                           (3, [2, 0, 3, 1]), (4, [3, 2, 1, 0])):
+            out.append((t(mvq), t(satd), t(p4), t(np.int32(lmap)), nref))
+    return out
+
+
+def check_k4_picks_edges(dev, sizes=K4_EDGE_SIZES):
+    """K4 (both plans) and K7's list picks on the card against their plain
+    versions on the same card, every output equal bit for bit: inside the
+    AI plans of k4_intra_args and the P and B plans of k4_plan_args (every
+    case at 232x152 and 1024x768, flat at 1080p; the CPU tests hold the
+    plain versions to the JAX package at 232x152), inside a 1024x768 AI
+    plan and P and B plans banded over 2 bands, and on cost grids where
+    every DP level ties (k4_tied_args, with and without chroma;
+    k4_tied_inter_args) and picks that tie (k4_tied_picks) at `sizes`.
+    Raises on the first difference; times nothing."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import inter_plan as P
+    from hm16_2_tpu_torch.encode import intra_rd as R
+    from hm16_2_tpu_torch.parallel import frame_shard as F
+    n_eq = 0
+
+    def same(label, got, want):
+        nonlocal n_eq
+        _compare(f"K4/picks edge {label}", _flat(got), _flat(want))
+        n_eq += 1
+
+    big, mid, xga = sizes
+    plans = [(c, z) for z in (mid, xga) for c in K4_EDGE_CASES]
+    plans.append(("flat", big))
+    for case, size in plans:
+        label = f"{case} {size[1]}x{size[0]}"
+        with _held_to_plain(lambda lb, g, w: same(f"{label} AI {lb}", g, w),
+                            _k4_pick_pairs()):
+            run_intra_plan(k4_intra_args(case, size), dev)
+        for is_b in (False, True):
+            pc = {"moving": "one_ctu", "flat": "flat",
+                  "moving10": "far10"}[case]
+            with _held_to_plain(lambda lb, g, w: same(
+                    f"{label} {'B' if is_b else 'P'} {lb}", g, w),
+                    _k4_pick_pairs()):
+                run_plan(k4_plan_args(pc, is_b, size), dev)
+    mesh = F.make_row_mesh([dev] * 2)
+    a = k4_intra_args("moving", xga)
+
+    class Sps:
+        bit_depth_luma = bit_depth_chroma = 8
+        strong_intra_smoothing = 1
+        pic_height, pic_width = xga
+        chroma_format_idc = 1
+
+    with _held_to_plain(lambda lb, g, w: same(f"banded AI {lb}", g, w),
+                        _k4_pick_pairs()):
+        F.sharded_plan_frame(mesh, [a["y"], a["cb"], a["cr"]], Sps,
+                             a["kw"]["qp"], a["lam"], a["cw"],
+                             (a["kw"]["cqp0"], a["kw"]["cqp1"]))
+        for is_b in (False, True):
+            run_plan(k4_plan_args("one_ctu", is_b, xga), dev, mesh)
+    for h, w in sizes:
+        for chroma in (False, True):
+            args = k4_tied_args(h, w, dev, chroma)
+            same(f"tied DP {w}x{h} chroma={chroma}", K.plan_dp(*args),
+                 R._plan_ctu_plain(*args))
+        args = k4_tied_inter_args(h, w, dev)
+        same(f"tied P/B DP {w}x{h}", K.emit_inter_plan(*args),
+             P._emit_plain(*args))
+        e = k4_tied_picks(h, w, dev)
+        for i in range(0, len(e), K.MAX_PICK):
+            part = e[i:i + K.MAX_PICK]
+            same(f"tied picks {w}x{h}", K.uni_select_all(part, 0.5),
+                 P._uni_select_all_plain(part, 0.5))
+    print(f"K4/picks edge inputs (AI, P, B plans {', '.join(K4_EDGE_CASES)} "
+          f"at {mid[1]}x{mid[0]} and {xga[1]}x{xga[0]}, flat at "
+          f"{big[1]}x{big[0]}; banded AI, P, B at {xga[1]}x{xga[0]}; tied "
+          f"DP and picks): {n_eq} kernel outputs equal their plain versions"
+          f"  [{CARD}]", flush=True)
+    return n_eq
+
+
 def k6_conv_yardstick(refs, reps=5):
     """ms of torch.nn.functional.conv2d, float32 with TF32 off, over the
     edge-padded 8-bit references (R, h, w) with the 16 outer-product 8x8
@@ -956,7 +1168,7 @@ def report_k6_k8(stats, refs8):
     four 8-bit references of check_inter_kernels), from the cases of
     check_inter_kernels and check_b_kernels in `stats`."""
     cases = {k: stats[k]["cases"] for k in ("inter_cu_rd", "inter_cu_rd_b",
-                                            "inter_uni")}
+                                            "inter_uni", "inter_pick")}
     print("K8 ms by CU size: P " + ", ".join(
         f"s={s} {cases['inter_cu_rd'][f'CU pricing s={s}'][0]:.3f}"
         for s in (8, 16, 32, 64)) + "; B " + ", ".join(
@@ -964,12 +1176,11 @@ def report_k6_k8(stats, refs8):
         for s in (8, 16, 32, 64)) + f"  [{CARD}]", flush=True)
     qpel = sum(v[0] for k, v in cases["inter_uni"].items()
                if k.startswith("q-pel"))
-    picks = {m: sum(v[0] for k, v in cases["inter_uni"].items()
-                    if "pick" in k and k.startswith("list pick") == (m == "P"))
-             for m in ("P", "B")}
+    picks = {m: sum(v[0] for k, v in cases["inter_pick"].items()
+                    if k.startswith(m)) for m in ("P", "B")}
     print(f"K7 ms: q-pel refinement {qpel:.3f} (ten shapes); list picks "
-          f"P {picks['P']:.3f}, B {picks['B']:.3f} (both lists)  [{CARD}]",
-          flush=True)
+          f"(one launch) P {picks['P']:.3f}, B {picks['B']:.3f} (both lists)"
+          f"  [{CARD}]", flush=True)
     h, w = refs8.shape[1:]
     print(f"K6 yardstick, not the port: conv2d float32 (TF32 off) with 16 "
           f"8x8 filters over 4 edge-padded 8-bit {w}x{h} refs "
@@ -1161,6 +1372,7 @@ SOURCES = {
     "inter_me": ("inter_me.cu", "hm16_2_tpu/encode/inter_plan.py:209"),
     "subpel_planes": ("subpel.cu", "hm16_2_tpu/encode/inter_plan.py:294"),
     "inter_uni": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:362"),
+    "inter_pick": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:507"),
     "inter_bi_refine": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:401"),
     "inter_cu_rd": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:444"),
     "inter_cu_rd_b": ("inter_rd.cu", "hm16_2_tpu/encode/inter_plan.py:444"),
@@ -1175,8 +1387,9 @@ BAND = ("ref_buffers_band", "inter_me_band", "me_frame_band",
         "analysis_step")                          # kernels of parallel/ only
 B_ONLY = ("inter_bi_refine", "inter_cu_rd_b")     # kernels of B pictures only
 INTRA = ("ref_buffers", "intra_size_rd", "intra_cand_rd", "plan_dp")
-PLAN_ONLY = ("inter_me", "subpel_planes", "inter_uni", "inter_bi_refine",
-             "inter_cu_rd", "inter_cu_rd_b")      # kernels of the fused plan
+# the kernels of the fused plan
+PLAN_ONLY = ("inter_me", "subpel_planes", "inter_uni", "inter_pick",
+             "inter_bi_refine", "inter_cu_rd", "inter_cu_rd_b")
 
 
 def _ptxas(report, names):
@@ -1243,14 +1456,16 @@ def _env(name, value):
             os.environ[name] = old
 
 
-# K5-K8's kernels by the names the profiler gives them
-KERNEL_SPLIT = {"K5 refinement": ("me_refine_kernel",),
+# K4-K8's kernels by the names the profiler gives them
+KERNEL_SPLIT = {"K4 plan_dp": ("plan_pre_kernel", "plan_ctu_kernel",
+                               "emit_inter_kernel"),
+                "K5 refinement": ("me_refine_kernel",),
                 "K5 coarse argmin": ("me_argmin_kernel",),
                 "K5 rest (downsample, coarse grid, pyramid)": (
                     "me_down_kernel", "me_coarse8_kernel", "me_quad_kernel"),
                 "K6 subpel": ("subpel_kernel",),
                 "K7 frac_refine": ("frac_refine_kernel",),
-                "K7 list picks": ("uni_select_kernel",),
+                "K7 list picks": ("uni_select_all_kernel",),
                 "K8 CU pricing": ("cu_rd_kernel",)}
 
 
@@ -1278,7 +1493,7 @@ def _timed_pictures(enc, code, label, top):
                     if any(k in e.key for k in keys)) / 1e3
              for g, keys in KERNEL_SPLIT.items()}
     if any(split.values()):
-        print(f"K5-K8 device ms of the {label}: " + "; ".join(
+        print(f"K4-K8 device ms of the {label}: " + "; ".join(
             f"{g} {v:.3f}" for g, v in split.items()) + f"  [{CARD}]",
             flush=True)
     return aus, wall, {k: v - before.get(k, 0.0)
@@ -1303,6 +1518,16 @@ def _idr(code):
     return aus, time.perf_counter() - t0
 
 
+def _picks_per_picture(counts, n, label):
+    """K7's list picks are one launch per planned picture."""
+    print(f"{label}: {counts['inter_pick']} list-pick launches for {n} "
+          f"planned pictures, {counts['inter_uni']} q-pel launches",
+          flush=True)
+    if counts["inter_pick"] != n:
+        raise AssertionError(f"{label}: {counts['inter_pick']} list-pick "
+                             f"launches for {n} pictures")
+
+
 def ldp_phase(frames, dev):
     """HM's Low Delay P Main over IDR + one GOP of four P pictures through
     push_frame / flush; prints fps, the P pictures' stage_ms and their
@@ -1325,6 +1550,7 @@ def ldp_phase(frames, dev):
                                 if k not in B_ONLY + BAND + ("me_frame",)])
     _report(f"LDP {W}x{H} QP{QP} GOP4", len(frames) - 1, "P", out["idr"],
             out["wall"], out["stage"], aus)
+    _picks_per_picture(counts, len(frames) - 1, "LDP")
     return aus, counts
 
 
@@ -1365,6 +1591,7 @@ def ra_phase(frames, dev):
     if sorted(ahead) != [3, 6, 7]:
         raise AssertionError(f"RA: plans enqueued ahead for {ahead}, not for "
                              "POCs 3, 6 and 7")
+    _picks_per_picture(counts, len(frames) - 1, "RA")
     return aus, counts
 
 
@@ -1527,7 +1754,8 @@ def banded_phase(frames, small, dev):
 
     _, counts = _launches_of(
         K, run, f"banded path {W}x{H} AI, {w2}x{h2} RA", BAND + INTRA + (
-            "subpel_planes", "inter_uni", "inter_bi_refine", "inter_cu_rd_b"))
+            "subpel_planes", "inter_uni", "inter_pick", "inter_bi_refine",
+            "inter_cu_rd_b"))
     if counts["inter_me"] or counts["inter_cu_rd"]:
         raise AssertionError("the banded RA plans ran the whole-picture ME "
                              "or a P kernel")
@@ -1600,7 +1828,11 @@ def main():
                                             "me_refine_kernel",
                                             "frac_refine_kernel",
                                             "subpel_kernel",
-                                            "cu_rd_kernel")):
+                                            "cu_rd_kernel",
+                                            "uni_select_all_kernel",
+                                            "plan_pre_kernel",
+                                            "plan_ctu_kernel",
+                                            "emit_inter_kernel")):
         print(line, flush=True)
     print("dynamic shared memory per CTA (bytes): " + json.dumps(
         K.dynamic_smem()), flush=True)
@@ -1628,6 +1860,8 @@ def main():
     check_me_edges(dev)
     # K6 and K8 likewise
     check_k6_k8_edges(dev)
+    # K4 and K7's list picks likewise
+    check_k4_picks_edges(dev)
     report_k6_k8(stats, torch.from_numpy(np.stack(
         [frames[k][0] for k in (4, 3, 2, 1)]).astype("int32")).to(dev))
     # K2 and K3 likewise, and their time by case
@@ -1651,6 +1885,10 @@ def main():
     aus, ai_counts = _launches_of(
         K, lambda: list(enc.encode_stream(frames[:3])), f"AI {W}x{H}", INTRA)
     wall = time.perf_counter() - t0
+    print(f"AI launches per frame: plan_dp {ai_counts['plan_dp'] / 3}, "
+          f"ref_buffers {ai_counts['ref_buffers'] / 3}", flush=True)
+    if (ai_counts["plan_dp"], ai_counts["ref_buffers"]) != (2 * 3, 10 * 3):
+        raise AssertionError("AI: K4 not 2 launches per frame or K1 not 10")
     print(f"encode_stream {W}x{H} AI QP{QP}: 3 frames in {wall:.3f} s = "
           f"{3 / wall:.3f} fps; bytes {[len(a) for a in aus]}  [{CARD}]",
           flush=True)

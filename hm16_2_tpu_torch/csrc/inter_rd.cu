@@ -6,7 +6,10 @@
 // PUs :822-873): 49 quarter-pel SATDs + lams * MVD bins around each
 // (reference, block)'s integer MV, read from the 16 phase planes; then, per
 // block, the list entry with the least SATD + lams * (MVD + reference +
-// direction bins), entries past nref masked.  Its per-block-reference mode
+// direction bins), entries past nref masked: every (size, shape, list) of a
+// picture in one launch (launch count `inter_pick`), since each pick is a
+// thread's argmin over at most four entries and the host's enqueue of one
+// launch per entry cost ~25x their device time.  Its per-block-reference mode
 // (launch count `inter_bi_refine`) replaces `_frac_refine_any` (:401-433),
 // one pass of the B plan's bi refinement: a quarter-pel start MV, one
 // reference per block, and the bi target against the other list's
@@ -265,41 +268,69 @@ frac_refine_kernel(const short* __restrict__ sub, int Hp, int Wp,
   }
 }
 
-__global__ void uni_select_kernel(const int* __restrict__ mvq,
-                                  const float* __restrict__ satd,
-                                  const int* __restrict__ pred4,
-                                  const int* __restrict__ lmap, int mr,
-                                  int nref, int N, float lam,
-                                  int* __restrict__ ridx,
-                                  int* __restrict__ uref,
-                                  int* __restrict__ mv,
-                                  float* __restrict__ satd_o,
-                                  float* __restrict__ bits_o,
-                                  float* __restrict__ cost_o,
-                                  int* __restrict__ anchor) {
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+// the list picks of every (CU size, shape, list) of a picture in one launch:
+// one thread per (entry, block) over a flat grid.  An entry holds its
+// K7 q-pel outputs mvq (R, N, 2) and satd (R, N), the anchors pred4 (R, N,
+// 2), the list map lmap (mr,) and its output offset off (in blocks) into
+// two arenas: int32, whose first 2 * total ints hold (ridx N, uref N) at
+// 2 * off and whose rest holds int pairs (mv N, anchor N) at pair 2 * off,
+// and float32 (satd N, bits N, cost N) at 3 * off.  The wrapper hands out
+// each entry's outputs as views, made by one split per region.
+constexpr int kMaxPick = 24;
+
+struct PickEntry {
+  const int* mvq;
+  const float* satd;
+  const int* pred4;
+  const int* lmap;
+  int mr, nref, N, off;
+};
+
+struct PickArgs {
+  int n, total;
+  float lam;
+  int* iout;
+  float* fout;
+  PickEntry e[kMaxPick];
+};
+
+__global__ void uni_select_all_kernel(const __grid_constant__ PickArgs a) {
+  __shared__ int pre[kMaxPick + 1];
+  if (threadIdx.x <= a.n)
+    pre[threadIdx.x] = threadIdx.x < a.n ? a.e[threadIdx.x].off : a.total;
+  __syncthreads();
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= a.total) return;
+  int k = 0;
+  while (q >= pre[k + 1]) ++k;
+  const PickEntry& E = a.e[k];
+  const int N = E.N, n = q - E.off;
+  const int2* mvq = reinterpret_cast<const int2*>(E.mvq);
+  const int2* p4 = reinterpret_cast<const int2*>(E.pred4);
   int best = 0;
   float best_c = 0.f, best_b = 0.f;
-  for (int i = 0; i < mr; ++i) {
-    size_t e = (size_t)lmap[i] * N + n;
-    float mb = mvd_bits(mvq[e * 2 + 1] - pred4[e * 2 + 1],
-                        mvq[e * 2] - pred4[e * 2]);
-    int rb = nref > 1 ? min(i + 1, nref - 1) : 0;
+  for (int i = 0; i < E.mr; ++i) {
+    const size_t e = (size_t)E.lmap[i] * N + n;
+    const int2 m = mvq[e], p = p4[e];
+    float mb = mvd_bits(m.y - p.y, m.x - p.x);
+    int rb = E.nref > 1 ? min(i + 1, E.nref - 1) : 0;
     float bits = __fadd_rn(__fadd_rn(mb, __int2float_rn(rb)), 4.0f);
-    float c = i < nref ? __fmaf_rn(lam, bits, satd[e]) : inf_f();
+    float c = i < E.nref ? __fmaf_rn(a.lam, bits, E.satd[e]) : inf_f();
     if (i == 0 || c < best_c) { best = i; best_c = c; best_b = bits; }
   }
-  size_t e = (size_t)lmap[best] * N + n;
-  ridx[n] = best;
-  uref[n] = lmap[best];
-  mv[n * 2] = mvq[e * 2];
-  mv[n * 2 + 1] = mvq[e * 2 + 1];
-  satd_o[n] = satd[e];
-  bits_o[n] = best_b;
-  cost_o[n] = best_c;
-  anchor[n * 2] = pred4[e * 2];
-  anchor[n * 2 + 1] = pred4[e * 2 + 1];
+  const int ref = E.lmap[best];
+  const size_t e = (size_t)ref * N + n;
+  int* io = a.iout + (size_t)2 * E.off;
+  int2* po = reinterpret_cast<int2*>(a.iout + (size_t)2 * a.total) +
+             (size_t)2 * E.off;
+  float* fo = a.fout + (size_t)3 * E.off;
+  io[n] = best;
+  io[N + n] = ref;
+  po[n] = mvq[e];
+  po[N + n] = p4[e];
+  fo[n] = E.satd[e];
+  fo[N + n] = best_b;
+  fo[2 * N + n] = best_c;
 }
 
 // ---------------------------------------------------------------------------
@@ -872,15 +903,15 @@ extern "C" int hm_frac_refine(const short* sub, int Hp, int Wp, const int* cur,
   return (int)cudaGetLastError();
 }
 
-extern "C" int hm_uni_select(const int* mvq, const float* satd,
-                             const int* pred4, const int* lmap, int mr,
-                             int nref, int N, float lam, int* ridx, int* uref,
-                             int* mv, float* satd_o, float* bits_o,
-                             float* cost_o, int* anchor, void* stream) {
-  if (N <= 0 || mr <= 0) return (int)cudaErrorInvalidValue;
-  hm::uni_select_kernel<<<(N + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      mvq, satd, pred4, lmap, mr, nref, N, lam, ridx, uref, mv, satd_o,
-      bits_o, cost_o, anchor);
+extern "C" int hm_uni_select_all(const hm::PickArgs* a, void* stream) {
+  if (a->n <= 0 || a->n > hm::kMaxPick || a->total <= 0 || a->e[0].off != 0)
+    return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < a->n; ++k)
+    if (a->e[k].N <= 0 || a->e[k].mr <= 0 ||
+        a->e[k].off + a->e[k].N != (k + 1 < a->n ? a->e[k + 1].off : a->total))
+      return (int)cudaErrorInvalidValue;
+  hm::uni_select_all_kernel<<<(a->total + 255) / 256, 256, 0,
+                              (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
@@ -935,3 +966,4 @@ extern "C" size_t hm_cu_rd_smem_bytes(int s, int is_b) {
 // the argument structs' sizes, checked against their ctypes mirrors
 extern "C" size_t hm_sizeof_cu_rd_args() { return sizeof(hm::CuRdArgs); }
 extern "C" size_t hm_sizeof_uni_res() { return sizeof(hm::UniRes); }
+extern "C" size_t hm_sizeof_pick_args() { return sizeof(hm::PickArgs); }

@@ -10,7 +10,8 @@ and the plain PyTorch version beside it on a CPU tensor:
                         pricing, +-3 full-pel SSE refinement, per CU shape
     subpel_planes   K6  16-phase quarter-pel planes per reference
     frac_refine     K7  49 quarter-pel SATDs around the integer MV, argmin
-    uni_select      K7  a list's best reference per block
+    uni_select_all  K7  each list's best reference per block, for every
+                        (CU size, shape, list) of a picture in one launch
     frac_refine_any K7  one pass of the B plan's bi refinement (a reference
                         per block, the bi target 2*orig - other prediction)
     cu_rd           K8  P: merge set, kind, residual trial, skip, 2NxN /
@@ -499,14 +500,19 @@ def _uni_select_plain(mvq, satd, pred4, lmap, nref, lams):
             "bits": bits[k, ar], "cost": costs[k, ar], "anchor": p4[k, ar]}
 
 
-def uni_select(mvq, satd, pred4, lmap, nref: int, lams: float):
-    """The list's best reference per block: SATD + lams * (MVD, reference
-    and direction bins), entries past nref masked, ties to the first (K7).
-    mvq: (R, N, 2); satd: (R, N); pred4: (R, N, 2); lmap: (MAXREF,) int32
-    indices into the R references."""
-    if _on_cuda(satd):
-        return kernels.uni_select(mvq, satd, pred4, lmap, nref, lams)
-    return _uni_select_plain(mvq, satd, pred4, lmap, nref, lams)
+def _uni_select_all_plain(entries, lams):
+    return [_uni_select_plain(*e, lams) for e in entries]
+
+
+def uni_select_all(entries, lams: float):
+    """Each entry's list's best reference per block: SATD + lams * (MVD,
+    reference and direction bins), entries past nref masked, ties to the
+    first (K7's list picks, one launch for all entries).  entries: [(mvq
+    (R, N, 2), satd (R, N), pred4 (R, N, 2), lmap (MAXREF,) int32 indices
+    into the R references, nref)]; returns one dict per entry."""
+    if _on_cuda(entries[0][1]):
+        return kernels.uni_select_all(entries, lams)
+    return _uni_select_all_plain(entries, lams)
 
 
 # ---------------------------------------------------------------------------
@@ -761,9 +767,9 @@ def cu_rd(cur, sub, s: int, uni, tmvp4, ref0: int, rect, intra, lamf: float,
     against uni-prediction, the residual trial and its skip alternative,
     the 2NxN / Nx2N shapes and the intra alternative.  Returns the per-CU
     record (N, NREC) int32 (fields REC_FIELDS) and the CU cost (N,) f32.
-    uni: uni_select's result for the squares of size s; tmvp4: (N, 2)
+    uni: uni_select_all's result for the squares of size s; tmvp4: (N, 2)
     quarter-pel prior on list 0's first entry ref0; rect: {1: ..., 2: ...}
-    uni_select results of the two rect shapes, or None; intra: size_rd's
+    uni_select_all results of the two rect shapes, or None; intra: size_rd's
     (mode, cost, top3) or None."""
     if _on_cuda(cur):
         return kernels.cu_rd(cur, sub, s, uni, tmvp4, ref0, rect, intra,
@@ -883,11 +889,11 @@ def cu_rd_b(cur, sub, s: int, uni, tmvp4, first, nref, mvb, rect, intra,
     residual trial and its skip alternative, the 2NxN / Nx2N shapes (each
     PU from the cheaper list) and the intra alternative.  Returns the
     record (N, NREC) int32 and the CU cost (N,) f32.
-    uni, tmvp4, first, nref, mvb: per list (pair): uni_select's result for
+    uni, tmvp4, first, nref, mvb: per list (pair): uni_select_all's result for
     the squares of size s, the (N, 2) quarter-pel prior on the list's first
     entry, that entry's reference index, the live entry count, and the
     (N, 2) bi-refined MV (frac_refine_any); rect: {1: (l0, l1), 2: (l0,
-    l1)} uni_select results per shape and list, or None; intra: size_rd's
+    l1)} uni_select_all results per shape and list, or None; intra: size_rd's
     (mode, cost, top3) or None."""
     if _on_cuda(cur):
         return kernels.cu_rd_b(cur, sub, s, uni, tmvp4, first, nref, mvb,
@@ -1006,34 +1012,39 @@ def _plan_device(cur, refs, mvn16, dists, lam, lam_sqrt, qp, map0, nref0,
     sub = subpel_planes(refs, bd, h, w)
     lists = [(map0, nref0), (map1, nref1)] if is_b else [(map0, nref0)]
     first = [int(m[0]) for m, _ in lists]
+    # every shape's q-pel refinement, then one launch of the list picks
+    qpel = {}                     # (s, part): (mvq, satd, pred4 (R, N, 2))
+    for s in SIZES:
+        if not (h // s and w // s):
+            continue
+        for part in ((0, 1, 2) if (s, 1) in mv_int else (0,)):
+            bh, bw = {0: (s, s), 1: (s // 2, s), 2: (s, s // 2)}[part]
+            mvr = mv_int[(s, part)]
+            Ny, Nx = mvr.shape[1:3]
+            pp4 = 4 * _me_mvp(mvp8, s, part)[:, :Ny, :Nx]
+            mq, sa = frac_refine(sub, cur, mvr, pp4, lams, bh, bw)
+            qpel[(s, part)] = (mq, sa, pp4.reshape(pp4.shape[0], -1, 2)
+                               .contiguous())
+    keys = [(k, lx) for k in qpel for lx in range(len(lists))]
+    picks = dict(zip(keys, uni_select_all(
+        [qpel[k] + lists[lx] for k, lx in keys], lams)))
     recs, costs = {}, {}
     for s in SIZES:
-        ny, nx = h // s, w // s
         recs[s] = costs[s] = None
-        if not (ny and nx):
+        if (s, 0) not in qpel:
             continue
-        pred4 = 4 * _me_mvp(mvp8, s, 0)[:, :ny, :nx]
-        mvq, satd = frac_refine(sub, cur, mv_int[(s, 0)], pred4, lams, s, s)
-        pred4 = pred4.reshape(pred4.shape[0], -1, 2).contiguous()
-        uni = [uni_select(mvq, satd, pred4, m, n, lams) for m, n in lists]
+        uni = [picks[((s, 0), lx)] for lx in range(len(lists))]
         rect = None
-        if (s, 1) in mv_int:
-            rect = {}
-            for part in (1, 2):
-                bh, bw = (s // 2, s) if part == 1 else (s, s // 2)
-                mvr = mv_int[(s, part)]
-                Ny, Nx = mvr.shape[1:3]
-                pp4 = 4 * _me_mvp(mvp8, s, part)[:, :Ny, :Nx]
-                mq, sa = frac_refine(sub, cur, mvr, pp4, lams, bh, bw)
-                pp4 = pp4.reshape(pp4.shape[0], -1, 2).contiguous()
-                rect[part] = [uni_select(mq, sa, pp4, m, n, lams)
-                              for m, n in lists]
+        if (s, 1) in qpel:
+            rect = {part: [picks[((s, part), lx)] for lx in range(len(lists))]
+                    for part in (1, 2)}
         intra = None
         if s <= 32:
             bufs, blocks = intra_rd.ref_buffers(cur, s, bd, True, h, w)
             m, c, c3, _ = intra_rd.size_rd(bufs, blocks, lamf, s, bd, 3, qp,
                                            True, False, False, inter=True)
             intra = (m, c, c3)
+        pred4 = qpel[(s, 0)][2]
         tmvp4 = [pred4[f].contiguous() for f in first]
         if not is_b:
             recs[s], costs[s] = cu_rd(

@@ -9,8 +9,9 @@ beside it on a CPU tensor:
     size_rd       K2  35-mode prediction, SATD, top-k, transform RD, top-3
     premodes      K2  the same kernel in SATD-only mode (host fallback)
     cand_rd       K3  dist and bits of given modes (chroma, 64x64 level)
-    chroma_modes5, chroma_fold, mode64, plan_dp
-                  K4  chroma fold, 64x64 mode, quadtree DP, plan emission
+    plan_pre      K4  chroma candidates and 64x64 modes (one launch)
+    plan_dp       K4  chroma fold, 64x64 cost, quadtree DP, plan emission
+                      (one launch, a CTA per pair of CTUs)
 
 Float32 parity.  The plan is integer maths ranked by float32 costs, and a
 1-ulp difference flips an argmin.  The reference runs under XLA:CPU, whose
@@ -359,9 +360,9 @@ def _chroma_modes5_plain(dm):
 
 def chroma_modes5(dm):
     """(N, 5) chroma candidates {planar, 26, 10, DC, DM}, 34 replacing a
-    base mode equal to DM."""
+    base mode equal to DM (K4's first launch, plan_pre)."""
     if _on_cuda(dm):
-        return kernels.chroma_modes5(dm)
+        return kernels.plan_pre([dm], None, 0, 0)[0][0]
     return _chroma_modes5_plain(dm)
 
 
@@ -383,9 +384,11 @@ def _chroma_fold_plain(d_cb, b_cb, d_cr, b_cr, cost, lam, cw):
 
 def chroma_fold(d_cb, b_cb, d_cr, b_cr, cost, lam: float, cw: float):
     """Fold the chroma RD of the five candidates into one luma size's
-    cost grid: (cost + best, best chroma cost, best candidate index)."""
+    cost grid: (cost + best, best chroma cost, best candidate index).  On
+    the card the fold runs inside K4's CTU kernel (plan_dp)."""
     if _on_cuda(cost):
-        return kernels.chroma_fold(d_cb, b_cb, d_cr, b_cr, cost, lam, cw)
+        raise ValueError("chroma_fold: on the card the fold runs inside "
+                         "plan_dp's kernel")
     return _chroma_fold_plain(d_cb, b_cb, d_cr, b_cr, cost, lam, cw)
 
 
@@ -416,13 +419,24 @@ def _mode64_plain(satd32, nby64, nbx64):
     return mode64, _up(mode64, 2).reshape(-1)
 
 
-def mode64(satd32, nby64: int, nbx64: int):
-    """64x64 CU modes from the quad-summed int32 TU32 SATD (argmin, ties
-    to the lowest mode), and that mode for each of its four TU32s in
-    raster order of the (2*nby64, 2*nbx64) grid."""
-    if _on_cuda(satd32):
-        return kernels.mode64(satd32, nby64, nbx64)
-    return _mode64_plain(satd32, nby64, nbx64)
+def _plan_pre_plain(dms, satd32, nby64, nbx64):
+    m64 = (None, None) if satd32 is None else \
+        _mode64_plain(satd32, nby64, nbx64)
+    return [_chroma_modes5_plain(d) for d in dms], *m64
+
+
+def plan_pre(dms, satd32, nby64: int, nbx64: int):
+    """The chroma candidates (chroma_modes5) of each DM grid of `dms` and,
+    with satd32 (nby32, nbx32, 35), the 64x64 CU modes from the quad-summed
+    int32 TU32 SATD (argmin, ties to the lowest mode) and that mode for
+    each of its four TU32s in raster order of the (2*nby64, 2*nbx64) grid
+    (else None, None): K4's first launch."""
+    if satd32 is None and not dms:
+        return [], None, None
+    lead = satd32 if satd32 is not None else dms[0]
+    if _on_cuda(lead):
+        return kernels.plan_pre(dms, satd32, nby64, nbx64)
+    return _plan_pre_plain(dms, satd32, nby64, nbx64)
 
 
 def _plan_dp_plain(lam, h, w, mode_s, cost_s, cand_s, cmode_s, chroma_add32,
@@ -535,15 +549,27 @@ def _plan_dp_plain(lam, h, w, mode_s, cost_s, cand_s, cmode_s, chroma_add32,
          cands[:, :, 1].to(i8), cands[:, :, 2].to(i8), flags])
 
 
-def plan_dp(lam: float, h: int, w: int, mode_s, cost_s, cand_s, cmode_s,
-            chroma_add32, d64, b64, mode64_g):
-    """The 64x64 cost, the bottom-up quadtree DP and the dense emission of
-    the packed (7, h/4, w/4) int8 plan (K4)."""
-    if _on_cuda(cost_s[4]):
-        return kernels.plan_dp(lam, h, w, mode_s, cost_s, cand_s, cmode_s,
-                               chroma_add32, d64, b64, mode64_g)
+def _plan_ctu_plain(lam, cw, h, w, mode_s, cost_s, cand_s, db_s, d64, b64,
+                    mode64_g):
+    cost_s, cmode_s, add = dict(cost_s), {}, {}
+    for s in (8, 16, 32):
+        if s in db_s:
+            cost_s[s], add[s], cmode_s[s] = _chroma_fold_plain(
+                *db_s[s], cost_s[s], lam, cw)
     return _plan_dp_plain(lam, h, w, mode_s, cost_s, cand_s, cmode_s,
-                          chroma_add32, d64, b64, mode64_g)
+                          add.get(32), d64, b64, mode64_g)
+
+
+def plan_dp(lam: float, cw: float, h: int, w: int, mode_s, cost_s, cand_s,
+            db_s, d64, b64, mode64_g):
+    """The chroma fold of each size in db_s ({s: K3's (d_cb, b_cb, d_cr,
+    b_cr)}), the 64x64 cost, the bottom-up quadtree DP and the dense
+    emission of the packed (7, h/4, w/4) int8 plan (K4's CTU launch)."""
+    if _on_cuda(cost_s[4]):
+        return kernels.plan_dp(lam, cw, h, w, mode_s, cost_s, cand_s, db_s,
+                               d64, b64, mode64_g)
+    return _plan_ctu_plain(lam, cw, h, w, mode_s, cost_s, cand_s, db_s, d64,
+                           b64, mode64_g)
 
 
 def _plan_device(y, cb, cr, lam, cweight, stage1=None, *, h: int, w: int,
@@ -559,7 +585,7 @@ def _plan_device(y, cb, cr, lam, cweight, stage1=None, *, h: int, w: int,
     dev = y.device
     sizes = (4, 8, 16, 32)
     mode_s, cost_s, cand_s = {}, {}, {}
-    satd32 = None
+    satd32 = luma32 = None
     shape_s = {s: (h // s, w // s) for s in (4, 8, 16, 32, 64)}
     for i, s in enumerate(sizes):
         nby, nbx = shape_s[s]
@@ -577,42 +603,49 @@ def _plan_device(y, cb, cr, lam, cweight, stage1=None, *, h: int, w: int,
             bufs, blocks = ref_buffers(y, s, bd, strong, h, w)
             m, c, c3, sa = size_rd(bufs, blocks, lam, s, bd, NUM_RD_CANDS[s],
                                    qp, True, s == 4, s == 32)
+            if s == 32:
+                luma32 = bufs, blocks
         mode_s[s] = m.reshape(nby, nbx)
         cost_s[s] = c.reshape(nby, nbx)
         cand_s[s] = c3.reshape(nby, nbx, 3)
         if s == 32:
             satd32 = sa.reshape(nby, nbx, 35)
 
-    cmode_s, chroma_add = {}, {}
-    if chroma:
-        for s in (8, 16, 32):
-            cs = s // 2
-            nby, nbx = shape_s[s]
-            if nby == 0 or nbx == 0:
-                continue
-            modes5 = chroma_modes5(mode_s[s].reshape(-1))
-            db = []
-            for cplane, cqp in ((cb, cqp0), (cr, cqp1)):
-                bufs, blocks = ref_buffers(cplane, cs, cbd, False,
-                                           h // 2, w // 2)
-                db += cand_rd(bufs, blocks, modes5, cs, cbd, cqp)
-            cost_s[s], chroma_add[s], cmode_s[s] = chroma_fold(
-                *db, cost_s[s], lam, cweight)
-
     nby64, nbx64 = shape_s[64]
-    d64 = b64 = mode64_g = None
-    if nby64 and nbx64 and satd32 is not None:
-        mode64_g, pm64 = mode64(satd32, nby64, nbx64)
-        bufs32, blocks32 = ref_buffers(y, 32, bd, strong, h, w)
+    csizes = [s for s in (8, 16, 32) if chroma and shape_s[s][0]
+              and shape_s[s][1]]
+    has64 = bool(nby64 and nbx64 and satd32 is not None)
+    modes5, mode64_g, pm64 = plan_pre(
+        [mode_s[s].reshape(-1) for s in csizes],
+        satd32 if has64 else None, nby64, nbx64)
+    db_s = {}
+    for s, m5 in zip(csizes, modes5):
+        cs = s // 2
+        db = []
+        for cplane, cqp in ((cb, cqp0), (cr, cqp1)):
+            bufs, blocks = ref_buffers(cplane, cs, cbd, False, h // 2, w // 2)
+            db += cand_rd(bufs, blocks, m5, cs, cbd, cqp)
+        db_s[s] = db
+
+    d64 = b64 = None
+    if has64:
+        # the 64x64 level's TU32s: the s = 32 blocks of the rows and
+        # columns that whole CTUs cover, a prefix when the columns are
+        bufs32, blocks32 = luma32 if luma32 is not None else \
+            ref_buffers(y, 32, bd, strong, h, w)
         cbx = shape_s[32][1]
-        idx = torch.as_tensor(
-            (np.arange(2 * nby64)[:, None] * cbx
-             + np.arange(2 * nbx64)[None, :]).reshape(-1), device=dev)
-        d, b = cand_rd(bufs32[idx], blocks32[idx], pm64[:, None], 32, bd,
-                       qp, True, False)
+        if 2 * nbx64 == cbx:
+            n = 4 * nby64 * nbx64
+            bufs32, blocks32 = bufs32[:n], blocks32[:n]
+        else:
+            idx = (torch.arange(2 * nby64, device=dev)[:, None] * cbx
+                   + torch.arange(2 * nbx64, device=dev)[None, :]).reshape(-1)
+            bufs32, blocks32 = bufs32[idx], blocks32[idx]
+        d, b = cand_rd(bufs32, blocks32, pm64[:, None], 32, bd, qp, True,
+                       False)
         d64, b64 = d[:, 0], b[:, 0]
-    return plan_dp(lam, h, w, mode_s, cost_s, cand_s, cmode_s,
-                   chroma_add.get(32), d64, b64, mode64_g)
+    return plan_dp(lam, cweight, h, w, mode_s, cost_s, cand_s, db_s, d64,
+                   b64, mode64_g)
 
 
 # ---------------------------------------------------------------------------

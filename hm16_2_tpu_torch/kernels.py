@@ -14,8 +14,11 @@ and contiguity, launch, and raise if `cudaGetLastError()` is not 0.
                                           the P plan's intra alternative)
        analysis_step                     (K2's analysis mode: parallel.mesh)
     K3 intra_cand_rd  csrc/intra_rd.cu
-    K4 plan_dp        csrc/plan_dp.cu    (chroma fold, 64x64 level, DP,
-                                          emission of both plans)
+    K4 plan_dp        csrc/plan_dp.cu    (the AI plan's chroma candidates and
+                                          64x64 modes, then its chroma fold,
+                                          64x64 cost, DP and emission a CTA
+                                          per CTU pair; the P/B plan's DP and
+                                          emission a CTA per CTU)
     K5 inter_me       csrc/inter_me.cu   (downsample, coarse grid, pyramid,
                                           argmin, refinement; the plan's
                                           MVD-bin model)
@@ -25,7 +28,9 @@ and contiguity, launch, and raise if `cudaGetLastError()` is not 0.
                                           whole references: parallel.
                                           plan_shard, parallel.me_shard)
     K6 subpel_planes  csrc/subpel.cu
-    K7 inter_uni      csrc/inter_rd.cu   (q-pel refinement, list pick)
+    K7 inter_uni      csrc/inter_rd.cu   (q-pel refinement)
+       inter_pick                        (K7's list picks: every size, shape
+                                          and list of a picture in one launch)
        inter_bi_refine                   (K7's per-block-reference mode:
                                           the B plan's bi refinement)
     K8 inter_cu_rd    csrc/inter_rd.cu   (P pictures)
@@ -65,9 +70,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"ref_buffers": 0, "intra_size_rd": 0, "intra_cand_rd": 0,
             "plan_dp": 0, "inter_me": 0, "subpel_planes": 0, "inter_uni": 0,
-            "inter_bi_refine": 0, "inter_cu_rd": 0, "inter_cu_rd_b": 0,
-            "me_frame": 0, "ref_buffers_band": 0, "inter_me_band": 0,
-            "me_frame_band": 0, "analysis_step": 0}
+            "inter_pick": 0, "inter_bi_refine": 0, "inter_cu_rd": 0,
+            "inter_cu_rd_b": 0, "me_frame": 0, "ref_buffers_band": 0,
+            "inter_me_band": 0, "me_frame_band": 0, "analysis_step": 0}
 
 
 def reset_launches():
@@ -83,22 +88,45 @@ class TqParams(ctypes.Structure):
         "inv_s2")] + [("filt", ctypes.c_ulonglong)]
 
 
-class PlanGrids(ctypes.Structure):
-    """hm::PlanGrids (csrc/plan_dp.cu)."""
-    _fields_ = [(n, ctypes.c_int) for n in (
-        "h4", "w4", "nby4", "nbx4", "nby8", "nbx8", "nby16", "nbx16",
-        "nby32", "nbx32", "nby64", "nbx64")] + [(n, ctypes.c_void_p) for n in (
-            "c64", "split32", "split16", "nxn", "mode4", "mode8", "mode16",
-            "mode32", "mode64", "cand4", "cand8", "cand16", "cand32",
-            "cmode8", "cmode16", "cmode32")]
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-class InterGrids(ctypes.Structure):
-    """hm::InterGrids (csrc/plan_dp.cu)."""
-    _fields_ = [("h4", ctypes.c_int), ("w4", ctypes.c_int),
-                ("ny", ctypes.c_int * 4), ("nx", ctypes.c_int * 4),
-                ("split16", ctypes.c_void_p), ("split32", ctypes.c_void_p),
-                ("split64", ctypes.c_void_p), ("rec", ctypes.c_void_p * 4)]
+class PlanPre(ctypes.Structure):
+    """hm::PlanPre (csrc/plan_dp.cu)."""
+    _fields_ = [("dm", _P * 3), ("n", _I * 3), ("modes5", _P * 3),
+                ("base", _I * 4), ("satd32", _P), ("nbx32", _I),
+                ("nby64", _I), ("nbx64", _I), ("mode64", _P), ("pm64", _P)]
+
+
+class PlanCtu(ctypes.Structure):
+    """hm::PlanCtu (csrc/plan_dp.cu)."""
+    _fields_ = [("nby", _I * 5), ("nbx", _I * 5), ("lam", _F), ("cw", _F),
+                ("nxn_bits", _F), ("split_bits", _F), ("bits64", _F),
+                ("mode_bits", _F * 5), ("cost", _P * 4), ("mode", _P * 5),
+                ("cand", _P * 4), ("chroma", (_P * 4) * 3), ("d64", _P),
+                ("b64", _P)]
+
+
+class InterCtu(ctypes.Structure):
+    """hm::InterCtu (csrc/plan_dp.cu)."""
+    _fields_ = [("ny", _I * 4), ("nx", _I * 4), ("h4", _I), ("w4", _I),
+                ("lam", _F), ("split_bits", _F), ("cost", _P * 4),
+                ("rec", _P * 4)]
+
+
+MAX_PICK = 24            # hm::kMaxPick: list-pick entries per launch
+
+
+class PickEntry(ctypes.Structure):
+    """hm::PickEntry (csrc/inter_rd.cu)."""
+    _fields_ = [("mvq", _P), ("satd", _P), ("pred4", _P), ("lmap", _P),
+                ("mr", _I), ("nref", _I), ("N", _I), ("off", _I)]
+
+
+class PickArgs(ctypes.Structure):
+    """hm::PickArgs (csrc/inter_rd.cu)."""
+    _fields_ = [("n", _I), ("total", _I), ("lam", _F), ("iout", _P),
+                ("fout", _P), ("e", PickEntry * MAX_PICK)]
 
 
 class UniRes(ctypes.Structure):
@@ -130,8 +158,8 @@ class CuRdArgs(ctypes.Structure):
 
 # each C argument struct (its sizeof exported by the library) and its mirror
 _STRUCTS = {"hm_sizeof_tq_params": TqParams,
-            "hm_sizeof_plan_grids": PlanGrids,
-            "hm_sizeof_inter_grids": InterGrids,
+            "hm_sizeof_plan_pre": PlanPre, "hm_sizeof_plan_ctu": PlanCtu,
+            "hm_sizeof_inter_ctu": InterCtu, "hm_sizeof_pick_args": PickArgs,
             "hm_sizeof_uni_res": UniRes, "hm_sizeof_cu_rd_args": CuRdArgs}
 
 
@@ -233,13 +261,9 @@ def _load():
                              P, P, P, P],
         "hm_analysis_step": [P, P, I, ctypes.POINTER(TqParams), P, P, P, P, P,
                              P, P],
-        "hm_chroma_modes5": [P, I, I, I, I, I, P, P],
-        "hm_chroma_fold": [P, P, P, P, P, P, I, F, F, P, P, P, P],
-        "hm_mode64": [P, I, I, I, P, P, P],
-        "hm_cost64": [P, P, P, I, I, I, F, F, P, P],
-        "hm_dp_level": [P, I, P, I, I, F, F, I, P, P, P],
-        "hm_emit_plan": [ctypes.POINTER(PlanGrids), P, P],
-        "hm_emit_inter_plan": [ctypes.POINTER(InterGrids), P, P],
+        "hm_plan_pre": [ctypes.POINTER(PlanPre), P],
+        "hm_plan_ctu": [ctypes.POINTER(PlanCtu), P, P],
+        "hm_emit_inter_plan": [ctypes.POINTER(InterCtu), P, P],
         "hm_me_down": [P, I, I, I, I, I, P, P],
         "hm_me_coarse8": [P, P, I, I, I, I, I, I, I, P, P],
         "hm_me_quad": [P, ctypes.c_longlong, I, I, I, I, P, P],
@@ -248,7 +272,7 @@ def _load():
         "hm_subpel_planes": [P, I, I, I, I, P, P],
         "hm_frac_refine": [P, I, I, P, I, I, I, I, I, I, P, I, P, P, P, P, F,
                            P, P, P],
-        "hm_uni_select": [P, P, P, P, I, I, I, F, P, P, P, P, P, P, P, P],
+        "hm_uni_select_all": [ctypes.POINTER(PickArgs), P],
         "hm_cu_rd": [ctypes.POINTER(CuRdArgs), I, I, I, P],
     }
     for name, args in sigs.items():
@@ -329,8 +353,6 @@ def _device_tables(device):
             "dst4": i32(DST4),
             "ang": i32(np.concatenate([ANG_TABLE, INV_ANG_TABLE])),
             "model": torch.as_tensor(model, device=device),
-            "chroma_bits": torch.as_tensor(
-                np.asarray(R.CHROMA_MODE_BITS, np.float32), device=device),
         }
     return _tables[key]
 
@@ -500,126 +522,87 @@ def analysis_step(orig, bufs, qp, s, bd):
 # K4
 # ---------------------------------------------------------------------------
 
-def chroma_modes5(dm):
+def plan_pre(dms, satd32, nby64, nbx64):
+    """K4's first launch of an AI frame: the (n, 5) chroma candidates of
+    each (n,) DM grid of `dms` (at most three) and, with satd32 (nby32,
+    nbx32, 35), the (nby64, nbx64) 64x64 modes and their copy per TU32
+    (else None, None)."""
     from hm16_2_tpu_torch.encode.intra_rd import CHROMA_BASE_MODES
-    n = dm.shape[0]
-    _need(dm, torch.int32, (n,), "dm")
-    out = torch.empty((n, 5), dtype=torch.int32, device=dm.device)
-    _launch("plan_dp", "hm_chroma_modes5", _ptr(dm), n, *CHROMA_BASE_MODES,
-            _ptr(out), _stream(dm))
-    return out
+    if len(dms) > 3:
+        raise ValueError("plan_pre: at most three chroma sizes")
+    a = PlanPre(base=(_I * 4)(*CHROMA_BASE_MODES))
+    lead, outs = None, []
+    for k, dm in enumerate(dms):
+        n = dm.shape[0]
+        _need(dm, torch.int32, (n,), "dm")
+        out = torch.empty((n, 5), dtype=torch.int32, device=dm.device)
+        a.dm[k], a.n[k], a.modes5[k] = dm.data_ptr(), n, out.data_ptr()
+        outs.append(out)
+        lead = dm
+    m64 = pm64 = None
+    if satd32 is not None:
+        nby32, nbx32 = satd32.shape[:2]
+        _need(satd32, torch.int32, (nby32, nbx32, 35), "satd32")
+        if 2 * nby64 > nby32 or 2 * nbx64 > nbx32:
+            raise ValueError("plan_pre: 64x64 grid larger than the TU32 grid")
+        dev = satd32.device
+        m64 = torch.empty((nby64, nbx64), dtype=torch.int32, device=dev)
+        pm64 = torch.empty(4 * nby64 * nbx64, dtype=torch.int32, device=dev)
+        a.satd32, a.nbx32, a.nby64, a.nbx64 = satd32.data_ptr(), nbx32, \
+            nby64, nbx64
+        a.mode64, a.pm64 = m64.data_ptr(), pm64.data_ptr()
+        lead = satd32
+    if sum(a.n) + (m64.numel() if m64 is not None else 0):
+        _launch("plan_dp", "hm_plan_pre", ctypes.byref(a), _stream(lead))
+    return outs, m64, pm64
 
 
-def chroma_fold(d_cb, b_cb, d_cr, b_cr, cost, lam, cw):
-    n = cost.numel()
-    _need(cost, torch.float32, name="cost")
-    for name, t in (("d_cb", d_cb), ("b_cb", b_cb), ("d_cr", d_cr),
-                    ("b_cr", b_cr)):
-        _need(t, torch.float32, (n, 5), name)
-    tabs = _device_tables(cost.device)
-    cost_out = torch.empty_like(cost)
-    add = torch.empty_like(cost)
-    cmode = torch.empty(cost.shape, dtype=torch.int32, device=cost.device)
-    _launch("plan_dp", "hm_chroma_fold", _ptr(d_cb), _ptr(b_cb), _ptr(d_cr),
-            _ptr(b_cr), _ptr(cost), _ptr(tabs["chroma_bits"]), n,
-            float(np.float32(lam)), float(np.float32(cw)), _ptr(cost_out),
-            _ptr(add), _ptr(cmode), _stream(cost))
-    return cost_out, add, cmode
-
-
-def mode64(satd32, nby64, nbx64):
-    nby32, nbx32 = satd32.shape[:2]
-    _need(satd32, torch.int32, (nby32, nbx32, 35), "satd32")
-    if 2 * nby64 > nby32 or 2 * nbx64 > nbx32:
-        raise ValueError("mode64: 64x64 grid larger than the TU32 grid")
-    dev = satd32.device
-    m64 = torch.empty((nby64, nbx64), dtype=torch.int32, device=dev)
-    pm64 = torch.empty(4 * nby64 * nbx64, dtype=torch.int32, device=dev)
-    _launch("plan_dp", "hm_mode64", _ptr(satd32), nbx32, nby64, nbx64,
-            _ptr(m64), _ptr(pm64), _stream(satd32))
-    return m64, pm64
-
-
-def plan_dp(lam, h, w, mode_s, cost_s, cand_s, cmode_s, chroma_add32, d64,
-            b64, mode64_g):
-    from hm16_2_tpu_torch.encode.intra_rd import NXN_OVERHEAD_BITS, \
-        SPLIT_OVERHEAD_BITS
+def plan_dp(lam, cw, h, w, mode_s, cost_s, cand_s, db_s, d64, b64,
+            mode64_g):
+    """K4's CTU launch of an AI frame: the chroma fold of the sizes in db_s
+    ({s: (d_cb, b_cb, d_cr, b_cr) (n, 5) float32 from K3}), the 64x64 cost
+    (d64, b64: K3 at the 64x64 level, or None), the quadtree DP and the
+    packed (7, h/4, w/4) int8 plan."""
+    from hm16_2_tpu_torch.encode.intra_rd import CHROMA_MODE_BITS, \
+        NXN_OVERHEAD_BITS, SPLIT_OVERHEAD_BITS
     dev = cost_s[4].device
-    lamf = float(np.float32(lam))
     shape_s = {s: (h // s, w // s) for s in (4, 8, 16, 32, 64)}
-    for s in (4, 8, 16, 32):
+    g = PlanCtu(lam=float(np.float32(lam)), cw=float(np.float32(cw)),
+                nxn_bits=NXN_OVERHEAD_BITS, split_bits=SPLIT_OVERHEAD_BITS,
+                bits64=8.0, mode_bits=(_F * 5)(*CHROMA_MODE_BITS))
+    keep = []                     # tensors whose pointers the struct holds
+    for l, s in enumerate((4, 8, 16, 32, 64)):
+        g.nby[l], g.nbx[l] = shape_s[s]
+        if s == 64:
+            continue
         _need(cost_s[s], torch.float32, shape_s[s], f"cost{s}")
         _need(mode_s[s], torch.int32, shape_s[s], f"mode{s}")
         _need(cand_s[s], torch.int32, shape_s[s] + (3,), f"cand{s}")
-    st = _stream(cost_s[4])
-    nby64, nbx64 = shape_s[64]
-    nby32, nbx32 = shape_s[32]
-    u8 = lambda hh, ww: torch.empty((hh, ww), dtype=torch.uint8, device=dev)
-
-    cost64 = None
-    if d64 is not None:
-        _need(d64, torch.float32, (4 * nby64 * nbx64,), "d64")
-        _need(b64, torch.float32, (4 * nby64 * nbx64,), "b64")
-        if chroma_add32 is not None:
-            _need(chroma_add32, torch.float32, shape_s[32], "chroma_add32")
-        cost64 = torch.empty((nby64, nbx64), dtype=torch.float32, device=dev)
-        _launch("plan_dp", "hm_cost64", _ptr(d64), _ptr(b64),
-                _ptr(chroma_add32), nbx32, nby64, nbx64, lamf, 8.0,
-                _ptr(cost64), st)
-
-    def level(child, parent, ovh):
-        hp, wp = parent.shape
-        flag = u8(hp, wp)
-        out = torch.empty_like(parent)
-        _launch("plan_dp", "hm_dp_level", _ptr(child), child.shape[1],
-                _ptr(parent), hp, wp, lamf, ovh, 0, _ptr(flag), _ptr(out),
-                st)
-        return flag, out
-
-    nxn = split16 = split32 = c64 = None
-    cu8 = cost_s[8]
-    if shape_s[8][0] and cost_s[4].numel() and cu8.numel():
-        nxn, cu8 = level(cost_s[4], cu8, NXN_OVERHEAD_BITS)
-    cu16 = cost_s[16]
-    if shape_s[16][0] and cu8.numel() and cu16.numel():
-        split16, cu16 = level(cu8, cu16, SPLIT_OVERHEAD_BITS)
-    cu32 = cost_s[32]
-    if nby32 and cu16.numel() and cu32.numel():
-        split32, cu32 = level(cu16, cu32, SPLIT_OVERHEAD_BITS)
-    if cost64 is not None:
-        c64 = u8(nby64, nbx64)
-        _launch("plan_dp", "hm_dp_level", _ptr(cu32), nbx32, _ptr(cost64),
-                nby64, nbx64, lamf, SPLIT_OVERHEAD_BITS, 1, _ptr(c64), None,
-                st)
-
-    h4, w4 = h // 4, w // 4
-    g = PlanGrids(h4=h4, w4=w4)
-    for s in (4, 8, 16, 32, 64):
-        setattr(g, f"nby{s}", shape_s[s][0])
-        setattr(g, f"nbx{s}", shape_s[s][1])
-    keep = []                     # tensors whose pointers the struct holds
-
-    def put(field, t):
-        if t is not None and t.numel():
+        if cost_s[s].numel():
+            keep += [cost_s[s], mode_s[s], cand_s[s]]
+            g.cost[l], g.mode[l], g.cand[l] = (t.data_ptr() for t in (
+                cost_s[s], mode_s[s], cand_s[s]))
+    for l, s in enumerate((8, 16, 32)):
+        if s not in db_s:
+            continue
+        n = shape_s[s][0] * shape_s[s][1]
+        for k, (name, t) in enumerate(zip(("d_cb", "b_cb", "d_cr", "b_cr"),
+                                          db_s[s])):
+            _need(t, torch.float32, (n, 5), f"{name}{s}")
             keep.append(t)
-            setattr(g, field, t.data_ptr())
-
-    put("c64", c64)
-    put("split32", split32)
-    put("split16", split16)
-    put("nxn", nxn)
-    for s in (4, 8, 16, 32):
-        put(f"mode{s}", mode_s[s])
-        put(f"cand{s}", cand_s[s])
-    if cost64 is not None:
-        _need(mode64_g, torch.int32, (nby64, nbx64), "mode64")
-        put("mode64", mode64_g)
-    for s in (8, 16, 32):
-        if s in cmode_s:
-            _need(cmode_s[s], torch.int32, shape_s[s], f"cmode{s}")
-            put(f"cmode{s}", cmode_s[s])
-    out = torch.empty((7, h4, w4), dtype=torch.int8, device=dev)
-    _launch("plan_dp", "hm_emit_plan", ctypes.byref(g), _ptr(out), st)
+            g.chroma[l][k] = t.data_ptr() if n else None
+    if d64 is not None:
+        n64 = shape_s[64][0] * shape_s[64][1]
+        _need(d64, torch.float32, (4 * n64,), "d64")
+        _need(b64, torch.float32, (4 * n64,), "b64")
+        _need(mode64_g, torch.int32, shape_s[64], "mode64")
+        if n64:
+            keep += [d64, b64, mode64_g]
+            g.d64, g.b64, g.mode[4] = d64.data_ptr(), b64.data_ptr(), \
+                mode64_g.data_ptr()
+    out = torch.empty((7, h // 4, w // 4), dtype=torch.int8, device=dev)
+    _launch("plan_dp", "hm_plan_ctu", ctypes.byref(g), _ptr(out),
+            _stream(cost_s[4]))
     return out
 
 
@@ -794,23 +777,49 @@ def frac_refine_any(sub, cur, mv4, uref, anchor4, o_uref, o_mv4, lams, s):
     return out[0], satd[0]
 
 
-def uni_select(mvq, satd, pred4, lmap, nref, lams):
-    R, N = satd.shape
-    mr = lmap.shape[0]
-    _need(mvq, torch.int32, (R, N, 2), "mvq")
-    _need(satd, torch.float32, (R, N), "satd")
-    _need(pred4, torch.int32, (R, N, 2), "pred4")
-    _need(lmap, torch.int32, (mr,), "lmap")
-    dev = satd.device
-    i32 = lambda *sh: torch.empty(sh, dtype=torch.int32, device=dev)
-    f32 = lambda *sh: torch.empty(sh, dtype=torch.float32, device=dev)
-    out = {"ridx": i32(N), "uref": i32(N), "mv": i32(N, 2), "satd": f32(N),
-           "bits": f32(N), "cost": f32(N), "anchor": i32(N, 2)}
-    _launch("inter_uni", "hm_uni_select", _ptr(mvq), _ptr(satd), _ptr(pred4),
-            _ptr(lmap), mr, int(nref), N, float(np.float32(lams)),
-            *[_ptr(out[k]) for k in ("ridx", "uref", "mv", "satd", "bits",
-                                     "cost", "anchor")], _stream(satd))
-    return out
+def uni_select_all(entries, lams):
+    """K7's list picks of every entry (mvq (R, N, 2), satd (R, N), pred4
+    (R, N, 2), lmap (mr,), nref) of a picture in one launch: one dict per
+    entry, whose tensors are views of two arenas."""
+    if not 0 < len(entries) <= MAX_PICK:
+        raise ValueError(f"uni_select_all: {len(entries)} entries, not "
+                         f"1..{MAX_PICK}")
+    lead = entries[0][1]
+    a = PickArgs(n=len(entries), lam=float(np.float32(lams)))
+    checked, sizes, off = set(), [], 0       # the lists share a shape's
+    for k, (mvq, satd, pred4, lmap, nref) in enumerate(entries):  # tensors
+        R, N = satd.shape
+        mr = lmap.shape[0]
+        key = (id(mvq), id(satd), id(pred4), id(lmap))
+        if key not in checked:
+            _need(mvq, torch.int32, (R, N, 2), "mvq")
+            _need(satd, torch.float32, (R, N), "satd")
+            _need(pred4, torch.int32, (R, N, 2), "pred4")
+            _need(lmap, torch.int32, (mr,), "lmap")
+            if not (mvq.device == satd.device == pred4.device ==
+                    lmap.device == lead.device):
+                raise ValueError("uni_select_all: entries on different "
+                                 "devices")
+            if mvq.data_ptr() % 8 or pred4.data_ptr() % 8:
+                raise ValueError("uni_select_all: mvq and pred4 are read as "
+                                 "8-byte pairs and must be 8-byte aligned")
+            checked.add(key)
+        a.e[k] = PickEntry(mvq.data_ptr(), satd.data_ptr(), pred4.data_ptr(),
+                           lmap.data_ptr(), mr, int(nref), N, off)
+        sizes.append(N)
+        off += N
+    iout = torch.empty(6 * off, dtype=torch.int32, device=lead.device)
+    fout = torch.empty(3 * off, dtype=torch.float32, device=lead.device)
+    a.total, a.iout, a.fout = off, iout.data_ptr(), fout.data_ptr()
+    _launch("inter_pick", "hm_uni_select_all", ctypes.byref(a), _stream(lead))
+    two = [n for N in sizes for n in (N, N)]
+    ints = iout[:2 * off].split(two)
+    pairs = iout[2 * off:].view(2 * off, 2).split(two)
+    floats = fout.split([n for N in sizes for n in (N, N, N)])
+    return [{"ridx": ints[2 * k], "uref": ints[2 * k + 1],
+             "mv": pairs[2 * k], "anchor": pairs[2 * k + 1],
+             "satd": floats[3 * k], "bits": floats[3 * k + 1],
+             "cost": floats[3 * k + 2]} for k in range(len(sizes))]
 
 
 # ---------------------------------------------------------------------------
@@ -909,39 +918,18 @@ def cu_rd_b(cur, sub, s, uni, tmvp4, first, nref, mvb, rect, intra, lamf,
 def emit_inter_plan(recs, costs, lamf, h, w):
     from hm16_2_tpu_torch.encode.inter_plan import NREC, PLAN_CHANNELS, \
         SIZES, SPLIT_BITS
-    dev = next(c.device for c in costs.values() if c is not None)
-    st = _stream(next(c for c in costs.values() if c is not None))
-    lam = float(np.float32(lamf))
-    shape = {s: (h // s, w // s) for s in SIZES}
-    g = InterGrids(h4=h // 4, w4=w // 4)
-    keep = []
+    lead = next(c for c in costs.values() if c is not None)
+    g = InterCtu(h4=h // 4, w4=w // 4, lam=float(np.float32(lamf)),
+                 split_bits=SPLIT_BITS)
     for i, s in enumerate(SIZES):
-        g.ny[i], g.nx[i] = shape[s]
+        g.ny[i], g.nx[i] = h // s, w // s
         if costs[s] is not None:
-            n = shape[s][0] * shape[s][1]
+            n = g.ny[i] * g.nx[i]
             _need(costs[s], torch.float32, (n,), f"cost{s}")
             _need(recs[s], torch.int32, (n, NREC), f"rec{s}")
-            keep.append(recs[s])
-            g.rec[i] = recs[s].data_ptr()
-
-    def level(child, s):
-        """DP level into size s: its split flags and its updated costs."""
-        hp, wp = shape[s]
-        flag = torch.empty((hp, wp), dtype=torch.uint8, device=dev)
-        out = torch.empty((hp * wp,), dtype=torch.float32, device=dev)
-        _launch("plan_dp", "hm_dp_level", _ptr(child), shape[s // 2][1],
-                _ptr(costs[s]), hp, wp, lam, SPLIT_BITS, 0, _ptr(flag),
-                _ptr(out), st)
-        keep.append(flag)
-        return flag, out
-
-    cu = costs[8]
-    for s, field in ((16, "split16"), (32, "split32"), (64, "split64")):
-        if cu is None or costs[s] is None:
-            break
-        flag, cu = level(cu, s)
-        setattr(g, field, flag.data_ptr())
+            g.cost[i], g.rec[i] = costs[s].data_ptr(), recs[s].data_ptr()
     out = torch.empty((PLAN_CHANNELS, h // 4, w // 4), dtype=torch.int16,
-                      device=dev)
-    _launch("plan_dp", "hm_emit_inter_plan", ctypes.byref(g), _ptr(out), st)
+                      device=lead.device)
+    _launch("plan_dp", "hm_emit_inter_plan", ctypes.byref(g), _ptr(out),
+            _stream(lead))
     return out

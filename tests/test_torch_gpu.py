@@ -49,6 +49,10 @@ def test_encode_on_card_equals_cpu(cuda, bits):
     on_card = list(Encoder(cfg(), cuda).encode_stream(frames))
     assert all(kernels.LAUNCHES[k] > 0 for k in (
         "ref_buffers", "intra_size_rd", "intra_cand_rd", "plan_dp"))
+    # per frame: K4's two launches, K1's four luma and six chroma calls
+    assert kernels.LAUNCHES["plan_dp"] == 2 * 2
+    assert kernels.LAUNCHES["ref_buffers"] == 10 * 2
+    assert kernels.LAUNCHES["inter_pick"] == 0
     on_cpu = list(Encoder(cfg(), torch.device("cpu")).encode_stream(frames))
     assert on_card == on_cpu
     pics = Decoder().decode_stream(b"".join(on_card))
@@ -106,6 +110,17 @@ def test_k6_k8_edges_equal_plain(cuda):
 
 
 @pytest.mark.gpu
+def test_k4_picks_equal_plain(cuda):
+    """K4 (the AI plan's two launches, the P/B plan's one) and K7's list
+    picks equal their plain versions bit for bit inside the AI, P and B
+    plans at 232x152 (every border rule) and 1024x768 (whole CTUs), on
+    moving, flat and 10-bit content, flat at 1080p, banded over 2 bands,
+    and on cost grids and picks where every comparison ties."""
+    import chip_smoke
+    assert chip_smoke.check_k4_picks_edges(cuda) > 0
+
+
+@pytest.mark.gpu
 def test_intra_edges_equal_plain(cuda):
     """K2 (RD at both rounding offsets, SATD-only, the analysis mode) and
     K3 (chroma, a luma mode per block) equal their plain versions bit for
@@ -139,6 +154,8 @@ def test_ldp_on_card_equals_cpu(cuda):
     assert all(v > 0 for k, v in kernels.LAUNCHES.items()
                if k not in idle), kernels.LAUNCHES
     assert all(kernels.LAUNCHES[k] == 0 for k in ("me_frame",) + BAND)
+    # one list-pick launch per planned picture, beside its ten q-pel ones
+    assert kernels.LAUNCHES["inter_uni"] == 10 * kernels.LAUNCHES["inter_pick"]
     assert on_card == run(torch.device("cpu"))
     pics = Decoder().decode_stream(b"".join(on_card))
     assert [p.hash_ok for p in pics] == [True] * 5
@@ -168,6 +185,8 @@ def test_ra_on_card_equals_cpu(cuda):
                if k not in ("inter_cu_rd", "me_frame") + BAND), \
         kernels.LAUNCHES
     assert all(kernels.LAUNCHES[k] == 0 for k in ("me_frame",) + BAND)
+    assert kernels.LAUNCHES["inter_pick"] == 8
+    assert kernels.LAUNCHES["inter_uni"] == 10 * kernels.LAUNCHES["inter_pick"]
     assert on_card == run(torch.device("cpu"))
     pics = Decoder().decode_stream(b"".join(on_card))
     assert [p.hash_ok for p in pics] == [True] * 9
