@@ -19,7 +19,11 @@ theirs (tied SATDs and costs, levels at the 32767 cap, a wrapped 12-bit
 SSE, a clamped dequant, 12-bit noise, batches no CTA's group divides;
 `check_intra_edges`) and K4 and K7's list picks to theirs inside AI, P and
 B plans at 232x152 (every border rule) and 1024x768, flat 1080p plans,
-banded plans and tied cost grids (`check_k4_picks_edges`), prints K2's and
+banded plans and tied cost grids (`check_k4_picks_edges`) and K1 to its
+own (a picture's sizes and planes in one launch at 232x152, 136x72, one
+CTU and a picture too short for s = 32; a plane larger than the picture;
+the strong-smoothing threshold met on both sides at 8, 10 and 12 bits; the
+band mode's groups and its zero halo; `check_k1_edges`), prints K2's and
 K3's time by case beside the bound, then drives the port's paths:
 
 - all-intra (HM's common-test All Intra Main configuration: QP 32, 8-bit
@@ -233,22 +237,25 @@ def check_kernels(frame, dev, reps=5):
     stats = _new_stats()
     case = _case(stats, reps)
 
-    luma, chroma = {}, {}
-    for s in (4, 8, 16, 32):
-        n = (H // s) * (W // s)
-        luma[s] = case("ref_buffers", f"luma s={s}",
-                       lambda: K.ref_buffers(y, s, 8, True, H, W),
-                       lambda: R._ref_buffers_plain(y, s, 8, True, H, W),
-                       y, n * (4 * s + 1) * 8)
-    for cs in (4, 8, 16):
-        n = (H // 2 // cs) * (W // 2 // cs)
-        chroma[cs] = case(
-            "ref_buffers", f"chroma s={cs}",
-            lambda: K.ref_buffers(cb, cs, 8, False, H // 2, W // 2),
-            lambda: R._ref_buffers_plain(cb, cs, 8, False, H // 2, W // 2),
-            cb, n * (4 * cs + 1) * 8)
-    crb = {cs: R._ref_buffers_plain(cr, cs, 8, False, H // 2, W // 2)
-           for cs in (4, 8, 16)}
+    # K1: an AI picture's group (luma s = 4-32, Cb and Cr at s = 4-16) and
+    # a P/B picture's (luma s = 8-32), one launch each
+    planes = {"y": (y, 8, True, H, W), "cb": (cb, 8, False, H // 2, W // 2),
+              "cr": (cr, 8, False, H // 2, W // 2)}
+    keys = [("y", s) for s in (4, 8, 16, 32)] + [
+        (c, cs) for cs in (4, 8, 16) for c in ("cb", "cr")]
+    for label, ks in (("AI group, 10 entries", keys),
+                      ("P/B group, 3 entries", keys[1:4])):
+        ent = [(planes[c][0], s) + planes[c][1:] for c, s in ks]
+        out = case("ref_buffers", label, lambda: K.ref_buffers_multi(ent),
+                   lambda: [R._ref_buffers_plain(*e) for e in ent],
+                   [planes[c][0] for c in dict(ks)],
+                   sum((e[4] // e[1]) * (e[5] // e[1]) * (4 * e[1] + 1) * 8
+                       for e in ent))
+        if ks is keys:
+            k1 = dict(zip(keys, out))
+    luma = {s: k1[("y", s)] for s in (4, 8, 16, 32)}
+    chroma = {cs: k1[("cb", cs)] for cs in (4, 8, 16)}
+    crb = {cs: k1[("cr", cs)] for cs in (4, 8, 16)}
 
     rd = {}
     for s in (4, 8, 16, 32):
@@ -657,6 +664,114 @@ def check_me_edges(dev, size=(64, 128), big=(1080, 1920)):
     print(f"K5/K7 edge inputs ({', '.join(ME_EDGE_CASES)} at "
           f"{size[1]}x{size[0]}; flat {big[1]}x{big[0]}, 4 refs): {n_eq} "
           f"kernel outputs equal their plain versions  [{CARD}]", flush=True)
+    return n_eq
+
+
+# the inputs on which K1's invariants rest: every border and clamping rule,
+# an empty entry, and the strong-smoothing threshold met on both sides
+K1_EDGE_CASES = ("232x152", "136x72", "one_ctu", "short", "big_plane", "bd8",
+                 "bd10", "bd12")
+# band mode: (h, w, n); at 136x72 the sizes fall in two groups, and the
+# last band's zero halo_bot is read (ROADMAP "Faults found")
+K1_BAND_CASES = ((128, 128, 2), (128, 128, 4), (72, 136, 2))
+
+
+def k1_threshold_plane(h, w, bd, seed):
+    """A flat bd-bit plane (2^(bd-1) plus noise in [0, thr], thr = 2^(bd-5))
+    whose samples at rows and columns 32i - 1 are 2^(bd-1) + a[i] + b[j],
+    a and b with second differences cycling through thr - 1, -(thr - 1),
+    thr, -thr, 0: an interior 32x32 block (by, bx) meets the strong-
+    smoothing test with its top and left second differences exactly at
+    b's cycle[bx % 5] and a's cycle[by % 5], so blocks fall just inside and
+    just outside the threshold on both of its tests."""
+    thr = 1 << (bd - 5)
+    rng = np.random.default_rng(seed)
+    p = (1 << (bd - 1)) + rng.integers(0, thr + 1, (h, w))
+    cycle = (thr - 1, -(thr - 1), thr, -thr, 0)
+
+    def seq(n):
+        v = [0, 0]
+        for j in range(n - 2):
+            v.append(2 * v[-1] - v[-2] + cycle[j % 5])
+        return v
+
+    a, b = seq(h // 32 + 1), seq(w // 32 + 1)
+    for i in range(1, h // 32 + 1):
+        for j in range(1, w // 32 + 1):
+            p[32 * i - 1, 32 * j - 1] = (1 << (bd - 1)) + a[i] + b[j]
+    return np.ascontiguousarray(p, dtype=np.int32)
+
+
+def k1_edge_inputs(case, strong=True):
+    """Seeded numpy planes and the entries (plane index, s, bd, strong, h,
+    w) of one K1 launch in an edge case.  "232x152", "136x72", "one_ctu"
+    (64x64), "short" (24x136: luma s = 32 and chroma s = 16 have no block):
+    an AI picture's group, luma s = 4-32 and Cb, Cr at s = 4-16 (make_yuv
+    content, 8-bit); "big_plane": a 100x144 plane holding 96x136, so the
+    clamps reach rows and columns past (h, w); "bd8", "bd10", "bd12": the
+    luma group on a 128x256 k1_threshold_plane.  strong: the luma entries'
+    strong-smoothing switch."""
+    seed = 91 + K1_EDGE_CASES.index(case)
+    size = {"232x152": (152, 232), "136x72": (72, 136), "one_ctu": (64, 64),
+            "short": (24, 136)}.get(case)
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)
+    luma = lambda bd, h, w: [(0, s, bd, strong, h, w) for s in (4, 8, 16, 32)]
+    if size:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        from make_fixtures import make_yuv
+        h, w = size
+        planes = [i32(p) for p in make_yuv(w, h, 1, seed=seed)[0]]
+        return planes, luma(8, h, w) + [(c, s, 8, False, h // 2, w // 2)
+                                        for s in (4, 8, 16) for c in (1, 2)]
+    if case == "big_plane":
+        rng = np.random.default_rng(seed)
+        return [i32(rng.integers(0, 256, (100, 144)))], luma(8, 96, 136)
+    bd = int(case[2:])
+    return [k1_threshold_plane(128, 256, bd, seed)], luma(bd, 128, 256)
+
+
+def k1_band_plane(h, w):
+    """The plane of a K1_BAND_CASES case: a k1_threshold_plane at 8 bits."""
+    return k1_threshold_plane(h, w, 8, 97 + h + w)
+
+
+def check_k1_edges(dev):
+    """K1 (one launch per case, both strong-smoothing switches) and its
+    band mode (each band height's group of sizes per band) on the card
+    against their plain versions on the same card, every output equal bit
+    for bit, on k1_edge_inputs and K1_BAND_CASES (the CPU tests hold the
+    plain versions to the JAX package on the same inputs).  Returns the
+    number of outputs compared."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import intra_rd as R
+    from hm16_2_tpu_torch.parallel import frame_shard as F
+    n_eq = 0
+    for case in K1_EDGE_CASES:
+        for strong in (True, False):
+            planes, entries = k1_edge_inputs(case, strong)
+            t = [torch.from_numpy(p).to(dev) for p in planes]
+            ent = [(t[i],) + tuple(e) for i, *e in entries]
+            got = _flat(K.ref_buffers_multi(ent))
+            n_eq += len(got)
+            _compare(f"K1 edge {case} strong={strong}", got,
+                     _flat([R._ref_buffers_plain(*e) for e in ent]))
+    for h, w, n in K1_BAND_CASES:
+        y = torch.from_numpy(k1_band_plane(h, w)).to(dev)
+        for B, group in F.band_groups(h, w, n).items():
+            bands, tops, bots = F.split_bands([dev] * n, y[:n * B],
+                                              max(group))
+            for i in range(n):
+                a = (bands[i], tops[i], bots[i])
+                got = _flat(K.ref_buffers_band_multi(*a, group, 8, True,
+                                                     i * B, h))
+                n_eq += len(got)
+                _compare(f"K1 band edge {w}x{h} n={n} band {i} {group}", got,
+                         _flat([F._ref_buffers_band_plain(
+                             bands[i], tops[i], bots[i][:s], s, 8, True,
+                             i * B, h) for s in group]))
+    print(f"K1 edge inputs ({', '.join(K1_EDGE_CASES)}; band mode "
+          f"{K1_BAND_CASES}): {n_eq} kernel outputs equal their plain "
+          f"versions  [{CARD}]", flush=True)
     return n_eq
 
 
@@ -1217,14 +1332,6 @@ def _kernel_split(label, fn, top=4):
         for e in ev[:top]) + f"  [{CARD}]", flush=True)
 
 
-def _banding(H, s, n):
-    """The rows (H // s) * s of a picture, when the banding rule splits
-    them into n bands of whole s-blocks (frame_shard.sharded_plan_frame),
-    else 0."""
-    rows = (H // s) * s
-    return rows if rows and rows % (n * s) == 0 else 0
-
-
 def _equal(label, got, want):
     """Banded against whole: every tensor equal, or raise."""
     _compare(label, _flat(got), _flat(want))
@@ -1236,11 +1343,12 @@ def check_band_kernels(frames, dev, reps=3, stats=None, bands=(2, 4),
     """K1's band mode, K5's band mode in both bit models and K2's analysis
     mode against their plain versions at the shapes the row-banded path
     gives them, n bands of the last of `frames` for n in `bands`, all on
-    `dev`: K1 for each size s whose rows the banding rule splits; K5 (when
+    `dev`: K1 once per band for each band height's group of the sizes whose
+    rows the banding rule splits (frame_shard.band_groups); K5 (when
     `me`) against the four frames before it, QP 32, priors reaching +-70
     full-pel across band edges; the analysis step on every aligned s-block
     of the picture for s in `analysis`.  Then the banded programs against
-    the whole picture on the same card: sharded_size_rd where the bands
+    the whole picture on the same card: sharded_sizes_rd where the bands
     cover the picture, sharded_int_me, sharded_me_frame and
     sharded_analysis_step.  Adds to `stats`."""
     from hm16_2_tpu_torch import kernels as K
@@ -1257,32 +1365,31 @@ def check_band_kernels(frames, dev, reps=3, stats=None, bands=(2, 4),
     lam = 0.57 * 2.0 ** ((QP - 12) / 3.0)
     stats = _new_stats(stats)
     case = _case(stats, reps)
-    zeros = lambda rows: torch.zeros((rows, W), dtype=torch.int32, device=dev)
 
     for n in bands:
         mesh = F.make_row_mesh([dev] * n)
-        for s in (4, 8, 16, 32):
-            rows = _banding(H, s, n)
-            if not rows:
-                continue
-            B = rows // n
-            bands_ = [y[i * B:(i + 1) * B] for i in range(n)]
-            tops = [zeros(1)] + [b[-1:] for b in bands_[:-1]]
-            bots = [b[:s] for b in bands_[1:]] + [zeros(s)]
-            args = [(bands_[i], tops[i], bots[i], s, 8, True, i * B, H)
+        for B, group in F.band_groups(H, W, n).items():
+            bands_, tops, bots = F.split_bands(mesh, y[:n * B], max(group))
+            args = [(bands_[i], tops[i], bots[i], group, 8, True, i * B, H)
                     for i in range(n)]
-            case("ref_buffers_band", f"{W}x{H} n={n} s={s}",
-                 lambda: [K.ref_buffers_band(*a) for a in args],
-                 lambda: [F._ref_buffers_band_plain(*a) for a in args],
-                 (y, tops, bots), (rows // s) * (W // s) * (4 * s + 1) * 8)
-            if rows == H:
-                k = R.NUM_RD_CANDS[s]
-                b, bl = K.ref_buffers(y, s, 8, True, H, W)
-                _equal(f"size_rd {W}x{H} n={n} s={s}",
-                       [g.reshape(-1) for g in F.sharded_size_rd(
-                           mesh, y, s, 8, k, QP, lam, True, H)],
-                       [g.reshape(-1) for g in K.intra_size_rd(
-                           b, bl, lam, s, 8, k, QP, True, s == 4, True)])
+            case("ref_buffers_band", f"{W}x{H} n={n} s={group}",
+                 lambda: [K.ref_buffers_band_multi(*a) for a in args],
+                 lambda: [F._ref_buffers_band_plain(
+                     b, t, o[:s], s, 8, True, r0, H)
+                     for b, t, o, _, _, _, r0, _ in args for s in group],
+                 (y[:n * B], tops, bots), sum(
+                     (n * B // s) * (W // s) * (4 * s + 1) * 8
+                     for s in group))
+            if n * B == H:
+                ks = [R.NUM_RD_CANDS[s] for s in group]
+                whole = K.ref_buffers_multi([(y, s, 8, True, H, W)
+                                             for s in group])
+                for s, k, got, (b, bl) in zip(group, ks, F.sharded_sizes_rd(
+                        mesh, y, group, ks, 8, QP, lam, True, H), whole):
+                    _equal(f"size_rd {W}x{H} n={n} s={s}",
+                           [g.reshape(-1) for g in got],
+                           [g.reshape(-1) for g in K.intra_size_rd(
+                               b, bl, lam, s, 8, k, QP, True, s == 4, True)])
 
     if me:
         nref = 4
@@ -1528,6 +1635,35 @@ def _picks_per_picture(counts, n, label):
                              f"launches for {n} pictures")
 
 
+@contextlib.contextmanager
+def _k1_per_plan():
+    """Inside the block, each P/B plan (`inter_plan._plan_device`) adds its
+    K1 launches to the yielded list."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import inter_plan as P
+    saved, seen = P._plan_device, []
+
+    def plan(*a, **kw):
+        before = K.LAUNCHES["ref_buffers"]
+        out = saved(*a, **kw)
+        seen.append(K.LAUNCHES["ref_buffers"] - before)
+        return out
+
+    P._plan_device = plan
+    try:
+        yield seen
+    finally:
+        P._plan_device = saved
+
+
+def _k1_once_per_plan(seen, n, label):
+    """K1 is one launch per P/B plan: the intra alternative's sizes."""
+    print(f"{label}: K1 launches per P/B plan {seen}", flush=True)
+    if seen != [1] * n:
+        raise AssertionError(f"{label}: K1 launches per plan {seen}, not one "
+                             f"in each of {n}")
+
+
 def ldp_phase(frames, dev):
     """HM's Low Delay P Main over IDR + one GOP of four P pictures through
     push_frame / flush; prints fps, the P pictures' stage_ms and their
@@ -1545,12 +1681,14 @@ def ldp_phase(frames, dev):
             enc, lambda: _push_all(enc, frames, 1), "P pictures", 12)
         return aus + rest
 
-    aus, counts = _launches_of(K, run, f"LDP {W}x{H}",
-                               [k for k in K.LAUNCHES
-                                if k not in B_ONLY + BAND + ("me_frame",)])
+    with _k1_per_plan() as k1:
+        aus, counts = _launches_of(K, run, f"LDP {W}x{H}",
+                                   [k for k in K.LAUNCHES
+                                    if k not in B_ONLY + BAND + ("me_frame",)])
     _report(f"LDP {W}x{H} QP{QP} GOP4", len(frames) - 1, "P", out["idr"],
             out["wall"], out["stage"], aus)
     _picks_per_picture(counts, len(frames) - 1, "LDP")
+    _k1_once_per_plan(k1, len(frames) - 1, "LDP")
     return aus, counts
 
 
@@ -1582,9 +1720,10 @@ def ra_phase(frames, dev):
             enc, lambda: _push_all(enc, frames, 1), "B pictures", 14)
         return aus + rest
 
-    aus, counts = _launches_of(K, run, f"RA {W}x{H}",
-                               [k for k in K.LAUNCHES if k not in BAND + (
-                                   "inter_cu_rd", "me_frame")])
+    with _k1_per_plan() as k1:
+        aus, counts = _launches_of(K, run, f"RA {W}x{H}",
+                                   [k for k in K.LAUNCHES if k not in BAND + (
+                                       "inter_cu_rd", "me_frame")])
     _report(f"RA {W}x{H} QP{QP} GOP8", len(frames) - 1, "B", out["idr"],
             out["wall"], out["stage"], aus,
             f"; plans enqueued ahead for POCs {ahead}")
@@ -1592,6 +1731,7 @@ def ra_phase(frames, dev):
         raise AssertionError(f"RA: plans enqueued ahead for {ahead}, not for "
                              "POCs 3, 6 and 7")
     _picks_per_picture(counts, len(frames) - 1, "RA")
+    _k1_once_per_plan(k1, len(frames) - 1, "RA")
     return aus, counts
 
 
@@ -1729,17 +1869,19 @@ def banded_phase(frames, small, dev):
         secs[f"whole {key}"] = time.perf_counter() - t0
     out = {}
 
+    band_k1 = lambda: K.LAUNCHES["ref_buffers_band"]
+
     def run():
-        t1 = time.perf_counter()
+        t1, k0 = time.perf_counter(), band_k1()
         with _banded(F.make_row_mesh([dev] * 2)):
             out["ai"] = ai()
-        secs["ai"] = time.perf_counter() - t1
+        secs["ai"], out["k1 ai"] = time.perf_counter() - t1, band_k1() - k0
         for n in (2, 4):
-            t1 = time.perf_counter()
+            t1, k0 = time.perf_counter(), band_k1()
             with _banded(F.make_row_mesh([dev] * n)) as seen:
                 out[n] = _push_all(Encoder(ra_cfg(), dev), small)
             out[f"inter{n}"] = seen["inter"]
-            secs[n] = time.perf_counter() - t1
+            secs[n], out[f"k1 {n}"] = time.perf_counter() - t1, band_k1() - k0
         orig, bufs = MM.example_batch(2, 2, 64, 16)
         out["analysis"] = MM.sharded_analysis_step(
             MM.make_mesh([dev] * 4, 2), 16, 8)(orig, bufs, QP)
@@ -1761,6 +1903,18 @@ def banded_phase(frames, small, dev):
                              "or a P kernel")
     for line in out["bench"]:
         print(f"scaling_bench {line}  [{CARD}]", flush=True)
+    # K1's band mode: one launch per band per band height's group of sizes
+    # in each I picture (1080p: s = 4 alone; 1024x768: every size)
+    k1_want = {"k1 ai": 2 * 2 * len(F.band_groups(H, W, 2)),
+               "k1 2": 2 * len(F.band_groups(h2, w2, 2)),
+               "k1 4": 4 * len(F.band_groups(h2, w2, 4))}
+    print(f"K1 band launches: {W}x{H} AI, 2 frames over 2 bands "
+          f"{out['k1 ai']}; {w2}x{h2} RA I picture over 2 and 4 bands "
+          f"{out['k1 2']}, {out['k1 4']}", flush=True)
+    if any(out[k] != v for k, v in k1_want.items()):
+        raise AssertionError(f"K1 band launches not one per band per group: "
+                             f"{ {k: out[k] for k in k1_want} } against "
+                             f"{k1_want}")
     if out["ai"] != whole["ai"]:
         raise AssertionError("banded AI bytes differ from the unbanded")
     for n in (2, 4):
@@ -1821,7 +1975,8 @@ def main():
     path, secs = K.build()
     print(f"kernels built in {secs:.1f} s: {os.path.relpath(path, ROOT)}  "
           f"[{CARD}]", flush=True)
-    for line in _ptxas(K.resource_usage(), ("size_rd_kernel",
+    for line in _ptxas(K.resource_usage(), ("ref_multi_kernel",
+                                            "size_rd_kernel",
                                             "cand_rd_kernel",
                                             "analysis_kernel",
                                             "me_argmin_kernel",
@@ -1850,9 +2005,10 @@ def main():
     check_b_kernels(frames[:5], dev, stats=stats)
     check_me_frame(frames[1:6], dev, stats=stats)
     check_me_frame(frames[4:6], dev, stats=stats, nref=1)
-    # the row-banded kernels: K1's band mode at 1080p (the one size the
-    # banding rule splits there), K2's analysis mode on every 1080p block,
-    # K1's and K5's band modes at 1024x768 (HM class F) over 2 and 4 bands
+    # the row-banded kernels: K1's band mode at 1080p (s = 4, the one size
+    # the banding rule splits there), K2's analysis mode on every 1080p
+    # block, K1's (every size, one group) and K5's band modes at 1024x768
+    # (HM class F) over 2 and 4 bands
     check_band_kernels(frames[:1], dev, stats=stats, me=False)
     xga = _frames(1024, 768, 9)
     check_band_kernels(xga[:5], dev, stats=stats, analysis=())
@@ -1866,6 +2022,8 @@ def main():
         [frames[k][0] for k in (4, 3, 2, 1)]).astype("int32")).to(dev))
     # K2 and K3 likewise, and their time by case
     check_intra_edges(dev)
+    # K1 likewise
+    check_k1_edges(dev)
     report_k2_k3(stats)
 
     # all-intra: warm-up frame, then a timed 3-frame encode_stream
@@ -1887,8 +2045,8 @@ def main():
     wall = time.perf_counter() - t0
     print(f"AI launches per frame: plan_dp {ai_counts['plan_dp'] / 3}, "
           f"ref_buffers {ai_counts['ref_buffers'] / 3}", flush=True)
-    if (ai_counts["plan_dp"], ai_counts["ref_buffers"]) != (2 * 3, 10 * 3):
-        raise AssertionError("AI: K4 not 2 launches per frame or K1 not 10")
+    if (ai_counts["plan_dp"], ai_counts["ref_buffers"]) != (2 * 3, 1 * 3):
+        raise AssertionError("AI: K4 not 2 launches per frame or K1 not 1")
     print(f"encode_stream {W}x{H} AI QP{QP}: 3 frames in {wall:.3f} s = "
           f"{3 / wall:.3f} fps; bytes {[len(a) for a in aus]}  [{CARD}]",
           flush=True)

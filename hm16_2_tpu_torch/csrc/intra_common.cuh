@@ -1,6 +1,7 @@
 // Device code shared by the RD kernels (K2 intra_size_rd, K3 intra_cand_rd
 // in intra_rd.cu; K7 inter_uni, K8 inter_cu_rd in inter_rd.cu; K5 inter_me
-// in inter_me.cu): the reference-buffer index of an angular intra mode, the
+// in inter_me.cu; cp.async also by K1 in ref_buffers.cu and K6 in
+// subpel.cu): the reference-buffer index of an angular intra mode, the
 // context-free residual-bits model, the 8x8 Hadamard SATD, the MVD bins,
 // the int32 stage item of K2's, K3's and K8's transform chains (`mm_item`),
 // cp.async copies and the 49-way warp argmin.

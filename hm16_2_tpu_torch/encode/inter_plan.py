@@ -1028,6 +1028,10 @@ def _plan_device(cur, refs, mvn16, dists, lam, lam_sqrt, qp, map0, nref0,
     keys = [(k, lx) for k in qpel for lx in range(len(lists))]
     picks = dict(zip(keys, uni_select_all(
         [qpel[k] + lists[lx] for k, lx in keys], lams)))
+    # the intra alternative's K1, every size <= 32 in one launch
+    isizes = [s for s in SIZES if s <= 32 and (s, 0) in qpel]
+    k1 = dict(zip(isizes, intra_rd.ref_buffers_multi(
+        [(cur, s, bd, True, h, w) for s in isizes]))) if isizes else {}
     recs, costs = {}, {}
     for s in SIZES:
         recs[s] = costs[s] = None
@@ -1039,9 +1043,8 @@ def _plan_device(cur, refs, mvn16, dists, lam, lam_sqrt, qp, map0, nref0,
             rect = {part: [picks[((s, part), lx)] for lx in range(len(lists))]
                     for part in (1, 2)}
         intra = None
-        if s <= 32:
-            bufs, blocks = intra_rd.ref_buffers(cur, s, bd, True, h, w)
-            m, c, c3, _ = intra_rd.size_rd(bufs, blocks, lamf, s, bd, 3, qp,
+        if s in k1:
+            m, c, c3, _ = intra_rd.size_rd(*k1[s], lamf, s, bd, 3, qp,
                                            True, False, False, inter=True)
             intra = (m, c, c3)
         pred4 = qpel[(s, 0)][2]

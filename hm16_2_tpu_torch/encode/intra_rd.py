@@ -6,6 +6,8 @@ algorithm.  Each stage is a wrapper that runs a hand-written CUDA kernel
 beside it on a CPU tensor:
 
     ref_buffers   K1  reference samples + original blocks per size
+                      (ref_buffers_multi: every size and plane of a
+                      picture in one launch)
     size_rd       K2  35-mode prediction, SATD, top-k, transform RD, top-3
     premodes      K2  the same kernel in SATD-only mode (host fallback)
     cand_rd       K3  dist and bits of given modes (chroma, 64x64 level)
@@ -314,6 +316,14 @@ def ref_buffers(plane, s: int, bd: int, strong: bool, h: int, w: int):
     return _ref_buffers_plain(plane, s, bd, strong, h, w)
 
 
+def ref_buffers_multi(entries):
+    """ref_buffers of each entry (plane, s, bd, strong, h, w), up to
+    kernels.MAX_K1 of them, in one K1 launch: a list of (bufs, blocks)."""
+    if _on_cuda(entries[0][0]):
+        return kernels.ref_buffers_multi(entries)
+    return [_ref_buffers_plain(*e) for e in entries]
+
+
 def size_rd(bufs, blocks, lam: float, s: int, bd: int, k: int, qp: int,
             is_luma: bool = True, use_dst: bool = False,
             want_satd: bool = False, inter: bool = False):
@@ -579,17 +589,34 @@ def _plan_device(y, cb, cr, lam, cweight, stage1=None, *, h: int, w: int,
     chroma mode RD, the 64x64 level, the quadtree DP and the packed plan.
     stage1: the per-size (mode, cost, top3, satd) grids of sizes 4..32
     computed elsewhere (the row-banded `parallel.frame_shard`), on the
-    planes' device, in place of K1 + K2 here.  Every branch depends on
-    shapes and options only, never on device values, so nothing here waits
-    for the device."""
+    planes' device, in place of K1 + K2 here; None at a size computes it
+    here.  One K1 launch gives every luma size computed here (and s = 32
+    for the 64x64 level), and Cb and Cr at the chroma sizes.  Every branch
+    depends on shapes and options only, never on device values, so nothing
+    here waits for the device."""
     dev = y.device
     sizes = (4, 8, 16, 32)
     mode_s, cost_s, cand_s = {}, {}, {}
-    satd32 = luma32 = None
     shape_s = {s: (h // s, w // s) for s in (4, 8, 16, 32, 64)}
+    live = [s for s in sizes if shape_s[s][0] and shape_s[s][1]]
+    own = [s for i, s in enumerate(sizes) if s in live and (
+        stage1 is None or stage1[i] is None)]
+    nby64, nbx64 = shape_s[64]
+    has64 = bool(nby64 and nbx64)          # then every size is live
+    csizes = [s for s in (8, 16, 32) if chroma and s in live]
+    keys = [("y", s) for s in own + ([32] if has64 and 32 not in own
+                                     else [])]
+    keys += [(c, s // 2) for s in csizes for c in ("cb", "cr")]
+    planes = {"y": (y, bd, strong, h, w),
+              "cb": (cb, cbd, False, h // 2, w // 2),
+              "cr": (cr, cbd, False, h // 2, w // 2)}
+    k1 = dict(zip(keys, ref_buffers_multi(
+        [(planes[c][0], s) + planes[c][1:] for c, s in keys]))) if keys \
+        else {}
+    satd32 = None
     for i, s in enumerate(sizes):
         nby, nbx = shape_s[s]
-        if nby == 0 or nbx == 0:
+        if s not in live:
             mode_s[s] = torch.zeros((nby, nbx), dtype=torch.int32,
                                     device=dev)
             cost_s[s] = torch.zeros((nby, nbx), dtype=torch.float32,
@@ -597,42 +624,32 @@ def _plan_device(y, cb, cr, lam, cweight, stage1=None, *, h: int, w: int,
             cand_s[s] = torch.zeros((nby, nbx, 3), dtype=torch.int32,
                                     device=dev)
             continue
-        if stage1 is not None:
-            m, c, c3, sa = stage1[i]
+        if s in own:
+            m, c, c3, sa = size_rd(*k1[("y", s)], lam, s, bd,
+                                   NUM_RD_CANDS[s], qp, True, s == 4,
+                                   s == 32)
         else:
-            bufs, blocks = ref_buffers(y, s, bd, strong, h, w)
-            m, c, c3, sa = size_rd(bufs, blocks, lam, s, bd, NUM_RD_CANDS[s],
-                                   qp, True, s == 4, s == 32)
-            if s == 32:
-                luma32 = bufs, blocks
+            m, c, c3, sa = stage1[i]
         mode_s[s] = m.reshape(nby, nbx)
         cost_s[s] = c.reshape(nby, nbx)
         cand_s[s] = c3.reshape(nby, nbx, 3)
         if s == 32:
             satd32 = sa.reshape(nby, nbx, 35)
 
-    nby64, nbx64 = shape_s[64]
-    csizes = [s for s in (8, 16, 32) if chroma and shape_s[s][0]
-              and shape_s[s][1]]
-    has64 = bool(nby64 and nbx64 and satd32 is not None)
     modes5, mode64_g, pm64 = plan_pre(
         [mode_s[s].reshape(-1) for s in csizes],
         satd32 if has64 else None, nby64, nbx64)
     db_s = {}
     for s, m5 in zip(csizes, modes5):
         cs = s // 2
-        db = []
-        for cplane, cqp in ((cb, cqp0), (cr, cqp1)):
-            bufs, blocks = ref_buffers(cplane, cs, cbd, False, h // 2, w // 2)
-            db += cand_rd(bufs, blocks, m5, cs, cbd, cqp)
-        db_s[s] = db
+        db_s[s] = [t for c, cqp in (("cb", cqp0), ("cr", cqp1))
+                   for t in cand_rd(*k1[(c, cs)], m5, cs, cbd, cqp)]
 
     d64 = b64 = None
     if has64:
         # the 64x64 level's TU32s: the s = 32 blocks of the rows and
         # columns that whole CTUs cover, a prefix when the columns are
-        bufs32, blocks32 = luma32 if luma32 is not None else \
-            ref_buffers(y, 32, bd, strong, h, w)
+        bufs32, blocks32 = k1[("y", 32)]
         cbx = shape_s[32][1]
         if 2 * nbx64 == cbx:
             n = 4 * nby64 * nbx64
@@ -687,7 +704,8 @@ def submit_plan(orig, sps, qp, lam, chroma_weight, chroma_qps,
     kernels and the copy of the packed plan into pinned host memory are
     queued on the current stream, so the card plans this frame while the
     host commits the previous one.  stage1: optional per-size (mode, cost,
-    top3, satd) grids on `device` (see _plan_device)."""
+    top3, satd) grids on `device`, None at a size computed here (see
+    _plan_device)."""
     bd = sps.bit_depth_luma
     strong = bool(sps.strong_intra_smoothing)
     h, w = sps.pic_height, sps.pic_width

@@ -7,9 +7,11 @@ Every launch goes on PyTorch's current stream and allocates nothing itself:
 the functions here allocate outputs with torch, check device, dtype, shape
 and contiguity, launch, and raise if `cudaGetLastError()` is not 0.
 
-    K1 ref_buffers    csrc/ref_buffers.cu
-       ref_buffers_band                  (K1 on one row band with its halos:
-                                          parallel.frame_shard)
+    K1 ref_buffers    csrc/ref_buffers.cu (every size and plane of a
+                                          picture in one launch)
+       ref_buffers_band                  (K1 on one row band with its halos,
+                                          every size of a band height in one
+                                          launch: parallel.frame_shard)
     K2 intra_size_rd  csrc/intra_rd.cu   (also SATD-only for _premodes, and
                                           the P plan's intra alternative)
        analysis_step                     (K2's analysis mode: parallel.mesh)
@@ -78,6 +80,24 @@ LAUNCHES = {"ref_buffers": 0, "intra_size_rd": 0, "intra_cand_rd": 0,
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+MAX_K1 = 10              # hm::kMaxK1: K1 entries per launch
+
+
+class K1Entry(ctypes.Structure):
+    """hm::K1Entry (csrc/ref_buffers.cu)."""
+    _fields_ = [("plane", ctypes.c_void_p), ("bufs", ctypes.c_void_p),
+                ("blocks", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("ph", "pw", "s", "bd", "strong", "nby",
+                                    "nbx", "max_row", "first")]
+
+
+class K1Args(ctypes.Structure):
+    """hm::K1Args (csrc/ref_buffers.cu)."""
+    _fields_ = [("n", ctypes.c_int), ("total", ctypes.c_int),
+                ("halo_top", ctypes.c_void_p), ("halo_bot", ctypes.c_void_p),
+                ("band_first", ctypes.c_int), ("e", K1Entry * MAX_K1)]
 
 
 class TqParams(ctypes.Structure):
@@ -157,7 +177,7 @@ class CuRdArgs(ctypes.Structure):
                 ("nref0", ctypes.c_int), ("nref1", ctypes.c_int)]
 
 # each C argument struct (its sizeof exported by the library) and its mirror
-_STRUCTS = {"hm_sizeof_tq_params": TqParams,
+_STRUCTS = {"hm_sizeof_k1_args": K1Args, "hm_sizeof_tq_params": TqParams,
             "hm_sizeof_plan_pre": PlanPre, "hm_sizeof_plan_ctu": PlanCtu,
             "hm_sizeof_inter_ctu": InterCtu, "hm_sizeof_pick_args": PickArgs,
             "hm_sizeof_uni_res": UniRes, "hm_sizeof_cu_rd_args": CuRdArgs}
@@ -228,11 +248,12 @@ def resource_usage():
 
 
 def dynamic_smem():
-    """Dynamic shared memory per CTA in bytes of K2 and K3 by block size and
-    mode, of K6, and of K8 by CU size and mode, as the library launches them
+    """Shared memory per CTA in bytes: K1's (static, one size for every s),
+    and the dynamic shared memory of K2 and K3 by block size and mode, of
+    K6, and of K8 by CU size and mode, as the library launches them
     (ptxas reports static shared memory only)."""
     lib = _load()
-    out = {}
+    out = {"ref_multi_kernel (static)": lib.hm_k1_smem_bytes()}
     for s in (4, 8, 16, 32):
         for op, kern in enumerate(("size_rd_kernel<{}, RD>",
                                    "size_rd_kernel<{}, SATD>",
@@ -253,8 +274,8 @@ def _load():
     lib = ctypes.CDLL(build()[0])
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
-        "hm_ref_buffers": [P, I, I, I, I, I, I, I, P, P, P],
-        "hm_ref_buffers_band": [P, I, I, P, P, I, I, I, I, I, I, I, P, P, P],
+        "hm_ref_buffers_multi": [ctypes.POINTER(K1Args), P],
+        "hm_ref_buffers_band_multi": [ctypes.POINTER(K1Args), P],
         "hm_intra_size_rd": [P, P, I, ctypes.POINTER(TqParams), P, P, P, F,
                              I, I, P, P, P, P, P],
         "hm_intra_cand_rd": [P, P, P, I, I, ctypes.POINTER(TqParams), P, P,
@@ -285,6 +306,8 @@ def _load():
     lib.hm_cu_rd_smem_bytes.restype = ctypes.c_size_t
     lib.hm_subpel_smem_bytes.argtypes = []
     lib.hm_subpel_smem_bytes.restype = ctypes.c_size_t
+    lib.hm_k1_smem_bytes.argtypes = []
+    lib.hm_k1_smem_bytes.restype = ctypes.c_size_t
     lib.hm_intra_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.hm_intra_smem_bytes.restype = ctypes.c_size_t
     for name, mirror in _STRUCTS.items():
@@ -388,48 +411,99 @@ def _tmat(tabs, s, use_dst):
 # K1
 # ---------------------------------------------------------------------------
 
-def ref_buffers(plane, s, bd, strong, h, w):
-    ph, pw = plane.shape
-    _need(plane, torch.int32, name="plane")
-    nby, nbx = h // s, w // s
-    if s not in (4, 8, 16, 32) or nby * s > ph or nbx * s > pw:
-        raise ValueError(f"ref_buffers: bad size s={s} for {h}x{w} in a "
-                         f"{ph}x{pw} plane")
+def _k1_entry(plane, s, bd, strong, nby, nbx, max_row=0):
+    """One K1 entry on `plane` (checked) and its outputs, allocated."""
+    dev = plane.device
     n = nby * nbx
-    bufs = torch.empty((n, 2, 4 * s + 1), dtype=torch.int32,
-                       device=plane.device)
-    blocks = torch.empty((n, s, s), dtype=torch.int32, device=plane.device)
-    if n:
-        _launch("ref_buffers", "hm_ref_buffers", _ptr(plane), ph, pw, s, bd,
-                int(bool(strong)), nby, nbx, _ptr(bufs), _ptr(blocks),
-                _stream(plane))
-    return bufs, blocks
+    bufs = torch.empty((n, 2, 4 * s + 1), dtype=torch.int32, device=dev)
+    blocks = torch.empty((n, s, s), dtype=torch.int32, device=dev)
+    ph, pw = plane.shape
+    return K1Entry(plane.data_ptr(), bufs.data_ptr(), blocks.data_ptr(), ph,
+                   pw, s, bd, int(bool(strong)), nby, nbx, max_row, 0), \
+        (bufs, blocks)
+
+
+def _k1_launch(kernel, name, args, outs, lead):
+    """Launch K1 on `args` on lead's stream unless no entry has a block."""
+    if any(blocks.numel() for _, blocks in outs):
+        _launch(kernel, name, ctypes.byref(args), _stream(lead))
+    return outs
+
+
+def _k1_plane(plane, s, bd, name):
+    _need(plane, torch.int32, name=name)
+    if plane.dim() != 2 or s not in (4, 8, 16, 32) or not 8 <= bd <= 16:
+        raise ValueError(f"{name}: a 2-D plane, s in 4..32 and bd in 8..16, "
+                         f"got {tuple(plane.shape)}, s={s}, bd={bd}")
+
+
+def ref_buffers_multi(entries):
+    """K1 over up to MAX_K1 entries (plane, s, bd, strong, h, w) in one
+    launch: per entry the (N, 2, 4s+1) buffers and (N, s, s) blocks of
+    every aligned s-block inside (h, w) of its (ph, pw) plane, raster
+    order.  An entry without a block gets empty outputs."""
+    if not 0 < len(entries) <= MAX_K1:
+        raise ValueError(f"ref_buffers_multi: {len(entries)} entries, not "
+                         f"1..{MAX_K1}")
+    dev = entries[0][0].device
+    args, outs = K1Args(n=len(entries)), []
+    for j, (plane, s, bd, strong, h, w) in enumerate(entries):
+        _k1_plane(plane, s, bd, f"ref_buffers_multi entry {j}")
+        ph, pw = plane.shape
+        nby, nbx = h // s, w // s
+        if plane.device != dev or h < 0 or w < 0 or nby * s > ph or \
+                nbx * s > pw:
+            raise ValueError(f"ref_buffers_multi entry {j}: s={s} for "
+                             f"{h}x{w} in a {ph}x{pw} plane on "
+                             f"{plane.device} (entry 0 on {dev})")
+        args.e[j], out = _k1_entry(plane, s, bd, strong, nby, nbx)
+        outs.append(out)
+    return _k1_launch("ref_buffers", "hm_ref_buffers_multi", args, outs,
+                      entries[0][0])
+
+
+def ref_buffers(plane, s, bd, strong, h, w):
+    """K1 on one size: ref_buffers_multi's one-entry launch."""
+    return ref_buffers_multi([(plane, s, bd, strong, h, w)])[0]
+
+
+def ref_buffers_band_multi(band, halo_top, halo_bot, sizes, bd, strong,
+                           band_first, pic_h):
+    """K1's band mode over the sizes of one band height in one launch: per
+    size s the buffers and blocks of every aligned s-block of a (B, W) row
+    band whose first row is picture row band_first of pic_h, with the band
+    above's last row halo_top (1, W) and the band below's first rows
+    halo_bot (max(sizes), W)."""
+    if not 0 < len(sizes) <= MAX_K1:
+        raise ValueError(f"ref_buffers_band_multi: {len(sizes)} sizes, not "
+                         f"1..{MAX_K1}")
+    B, W = band.shape
+    smax = max(sizes)
+    dev = band.device
+    _need(halo_top, torch.int32, (1, W), "halo_top")
+    _need(halo_bot, torch.int32, (smax, W), "halo_bot")
+    if not (halo_top.device == halo_bot.device == dev) or band_first < 0 \
+            or band_first + B > pic_h:
+        raise ValueError(f"ref_buffers_band_multi: a {B}x{W} band at row "
+                         f"{band_first} of {pic_h}, halos on "
+                         f"{halo_top.device}, {halo_bot.device}")
+    args, outs = K1Args(n=len(sizes)), []
+    args.halo_top, args.halo_bot = halo_top.data_ptr(), halo_bot.data_ptr()
+    args.band_first = band_first
+    for j, s in enumerate(sizes):
+        _k1_plane(band, s, bd, "ref_buffers_band_multi band")
+        args.e[j], out = _k1_entry(band, s, bd, strong, B // s, W // s,
+                                   min(B + s - 1, pic_h - 1 - band_first))
+        outs.append(out)
+    return _k1_launch("ref_buffers_band", "hm_ref_buffers_band_multi", args,
+                      outs, band)
 
 
 def ref_buffers_band(band, halo_top, halo_bot, s, bd, strong, band_first,
                      pic_h):
-    """K1's band mode: the buffers and blocks of every aligned s-block of a
-    (B, W) row band whose first row is picture row band_first, with the
-    band above's last row halo_top (1, W) and the band below's first rows
-    halo_bot (s, W)."""
-    B, W = band.shape
-    _need(band, torch.int32, name="band")
-    _need(halo_top, torch.int32, (1, W), "halo_top")
-    _need(halo_bot, torch.int32, (s, W), "halo_bot")
-    nby, nbx = B // s, W // s
-    if s not in (4, 8, 16, 32) or not (nby and nbx) or band_first < 0 or \
-            band_first + B > pic_h:
-        raise ValueError(f"ref_buffers_band: bad size s={s} for a {B}x{W} "
-                         f"band at row {band_first} of {pic_h}")
-    n = nby * nbx
-    dev = band.device
-    bufs = torch.empty((n, 2, 4 * s + 1), dtype=torch.int32, device=dev)
-    blocks = torch.empty((n, s, s), dtype=torch.int32, device=dev)
-    _launch("ref_buffers_band", "hm_ref_buffers_band", _ptr(band), B, W,
-            _ptr(halo_top), _ptr(halo_bot), s, bd, int(bool(strong)),
-            band_first, min(B + s - 1, pic_h - 1 - band_first), nby, nbx,
-            _ptr(bufs), _ptr(blocks), _stream(band))
-    return bufs, blocks
+    """K1's band mode on one size (halo_bot (s, W)): the one-entry launch."""
+    return ref_buffers_band_multi(band, halo_top, halo_bot, [s], bd, strong,
+                                  band_first, pic_h)[0]
 
 
 # ---------------------------------------------------------------------------

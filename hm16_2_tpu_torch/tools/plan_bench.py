@@ -1,20 +1,27 @@
-"""K4's and K7's list picks' time per picture on the card, inside whole
+"""K1's, K4's and K7's list picks' time per picture on the card, inside whole
 plans at 1920x1080 (`make_yuv(1920, 1080, 5, seed=42)`): the AI plan of
 frame 0 (QP 32, chroma on), the P plan of frame 4 against frames 3..0
 (four live references, QP 33) and the B plan of frame 2 between frames 1,
-0 (list 0) and 3, 4 (list 1), QP 34, each with a seeded motion prior.
+0 (list 0) and 3, 4 (list 1), QP 34, each with a seeded motion prior; and
+the banded AI plan (`frame_shard.sharded_plan_frame`, bands on this one
+card) of frame 0 at 1920x1080 over 2 bands and of `make_yuv(1024, 768, 1,
+seed=42)` over 4.
 
     python3 hm16_2_tpu_torch/tools/plan_bench.py [--root DIR] [--reps N]
 
 Each plan runs N times after a warm-up, through the plan's own entry point
-(`intra_rd._plan_device`, `inter_plan._plan_device`) of the checkout DIR
+(`intra_rd._plan_device`, `inter_plan._plan_device`,
+`frame_shard.sharded_plan_frame`, which also fetches the plan) of the
+checkout DIR
 (default: the one holding this file), so that an older tree unpacked beside
 this one is measured by the same code on the same card in one call.  Per
 picture it reports: the launches of every kernel (`kernels.LAUNCHES`); the
-CUDA-event time around each call of K4's and the picks' wrappers inside the
-plan (host enqueue included, as chip_smoke.py times every kernel); the
-device time of K4's, the picks' and K1's kernels from torch.profiler; and
-the plan's wall time up to a device sync.  Prints the card's name and power
+CUDA-event time around each call of K1's, K4's and the picks' wrappers
+inside the plan (host enqueue included, as chip_smoke.py times every
+kernel); the device time of K4's, the picks' and K1's kernels from
+torch.profiler; the plan's wall time up to a device sync; and the peak of
+device memory allocated during one plan above what was allocated before it
+(`torch.cuda.max_memory_allocated`).  Prints the card's name and power
 limit, a line per plan, and one JSON object.
 """
 
@@ -35,12 +42,15 @@ GROUPS = {"K4": ("chroma_modes5_kernel", "chroma_fold_kernel",
                  "emit_kernel", "emit_inter_kernel", "plan_pre_kernel",
                  "plan_ctu_kernel"),
           "picks": ("uni_select",),
-          "K1": ("ref_buffers_kernel", "blocks_kernel")}
+          "K1": ("ref_buffers_kernel", "blocks_kernel", "ref_multi_kernel")}
 # the wrappers whose calls are timed by events, where the tree has them
 WRAPPERS = {"K4": (("intra_rd", ("chroma_modes5", "chroma_fold", "mode64",
                                  "plan_pre", "plan_dp")),
                    ("inter_plan", ("emit",))),
-            "picks": (("inter_plan", ("uni_select", "uni_select_all")),)}
+            "picks": (("inter_plan", ("uni_select", "uni_select_all")),),
+            "K1": (("intra_rd", ("ref_buffers", "ref_buffers_multi")),
+                   ("frame_shard", ("ref_buffers_band",
+                                    "ref_buffers_band_multi")))}
 
 
 class EventTimer:
@@ -115,6 +125,16 @@ def plans(dev):
                     m1=m1, n=nrefs, b=label == "B": P._plan_device(
                         cur, refs, mvn16, dists, lam, lams, qp, m0, n[0], m1,
                         n[1], h=H, w=W, bd=8, nmerge=5, is_b=b)))
+    from hm16_2_tpu_torch.encode.top import EncoderConfig, build_sps_pps
+    from hm16_2_tpu_torch.parallel import frame_shard as F
+    for w, h, n in ((W, H, 2), (1024, 768, 4)):
+        orig = [np.ascontiguousarray(p, np.int32) for p in (
+            frames[0] if (w, h) == (W, H) else make_yuv(w, h, 1, seed=42)[0])]
+        sps, _ = build_sps_pps(EncoderConfig(w, h, qp=QP, intra_period=1))
+        out.append((f"I {w}x{h} {n} bands", lambda orig=orig, sps=sps, n=n:
+                    F.sharded_plan_frame(F.make_row_mesh([dev] * n), orig,
+                                         sps, QP, ai_lam, ai_cw,
+                                         (QP - 1, QP - 1))))
     return out
 
 
@@ -150,6 +170,7 @@ def main(argv=None):
     sys.path.insert(1, os.path.join(REPO, "tests"))
     from hm16_2_tpu_torch import kernels as K
     from hm16_2_tpu_torch.encode import inter_plan, intra_rd
+    from hm16_2_tpu_torch.parallel import frame_shard
     from intra_bench import card_line
     card = card_line()
     K.build()
@@ -166,15 +187,23 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / args.reps
         launches = {k: v / args.reps for k, v in K.LAUNCHES.items() if v}
-        timer = EventTimer({"intra_rd": intra_rd, "inter_plan": inter_plan})
+        timer = EventTimer({"intra_rd": intra_rd, "inter_plan": inter_plan,
+                            "frame_shard": frame_shard})
         for _ in range(args.reps):
             fn()
         events = {g: v / args.reps for g, v in timer.ms().items()}
         timer.restore()
         dev_ms = device_ms(fn, args.reps)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e6
         res[name] = {"launches": launches, "event_ms": events,
-                     "device_ms": dev_ms, "wall_ms": wall}
-        print(f"{label}: {name} plan per picture: wall {wall:.3f} ms; events "
+                     "device_ms": dev_ms, "wall_ms": wall, "peak_mb": peak}
+        print(f"{label}: {name} plan per picture: peak {peak:.1f} MB above "
+              f"the inputs; wall {wall:.3f} ms; events "
               + ", ".join(f"{g} {v:.4f}" for g, v in events.items())
               + " ms; device " + ", ".join(f"{g} {v:.4f}" for g, v in
                                            dev_ms.items())

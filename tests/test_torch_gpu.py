@@ -49,9 +49,10 @@ def test_encode_on_card_equals_cpu(cuda, bits):
     on_card = list(Encoder(cfg(), cuda).encode_stream(frames))
     assert all(kernels.LAUNCHES[k] > 0 for k in (
         "ref_buffers", "intra_size_rd", "intra_cand_rd", "plan_dp"))
-    # per frame: K4's two launches, K1's four luma and six chroma calls
+    # per frame: K4's two launches, K1's one (four luma and six chroma
+    # entries)
     assert kernels.LAUNCHES["plan_dp"] == 2 * 2
-    assert kernels.LAUNCHES["ref_buffers"] == 10 * 2
+    assert kernels.LAUNCHES["ref_buffers"] == 1 * 2
     assert kernels.LAUNCHES["inter_pick"] == 0
     on_cpu = list(Encoder(cfg(), torch.device("cpu")).encode_stream(frames))
     assert on_card == on_cpu
@@ -129,6 +130,17 @@ def test_intra_edges_equal_plain(cuda):
     37 blocks at every size)."""
     import chip_smoke
     assert chip_smoke.check_intra_edges(cuda) > 0
+
+
+@pytest.mark.gpu
+def test_k1_edges_equal_plain(cuda):
+    """K1 (a picture's sizes and planes in one launch) and its band mode
+    equal their plain versions bit for bit on the edge inputs of the
+    redesign (232x152, 136x72, one CTU, a picture too short for s = 32, a
+    plane larger than the picture, the strong-smoothing threshold at 8, 10
+    and 12 bits, the band groups and the zero halo)."""
+    import chip_smoke
+    assert chip_smoke.check_k1_edges(cuda) > 0
 
 
 @pytest.mark.gpu
@@ -267,6 +279,9 @@ def test_banded_ra_on_card_equals_cpu(cuda):
     assert all(kernels.LAUNCHES[k] > 0 for k in (
         "ref_buffers_band", "inter_me_band")), kernels.LAUNCHES
     assert kernels.LAUNCHES["inter_me"] == 0
+    # K1's band mode: every size in one group at 256x256, so one launch
+    # per band of the one I picture
+    assert kernels.LAUNCHES["ref_buffers_band"] == 2 + 4
     on_cpu = run(torch.device("cpu"), 2)
     assert on_card[0] == on_cpu and on_card[1] == on_cpu
     pics = Decoder().decode_stream(b"".join(on_cpu))
