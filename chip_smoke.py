@@ -38,6 +38,16 @@ K3's time by case beside the bound, then drives the port's paths:
 - the per-CU inter search (no fused plan, HM16_NO_INTER_PLAN, with the
   fork's RRSP fast partitioning) over an IDR and one P picture of 1080p
   through `encode_frame`;
+- HM's Low Delay P Main under R-lambda rate control at 4 Mbit/s, at
+  picture and at CTU level, over five 1080p frames (`rc_phase`: each
+  picture's QP, lambda and bits against its target; every kernel of the
+  first P plan held to its plain version at the model's lambda and at the
+  ends of the model's lambda range);
+- delta_qp_rd=1 on two 1080p AI frames and five 1080p LDP frames
+  (`dqp_phase`: four plans per picture, asserted by K1's and K4's
+  launches);
+- field coding of 1920x1088 AI over two frames and LDP over three
+  (`field_phase`: 544-row fields, partial CTU rows);
 - the encoder CLI on its default device (HM's Low Delay P Main cfg);
 - the row-banded path (`hm16_2_tpu_torch/parallel/`) with its bands on this
   one card: K1's and K5's band modes and K2's analysis mode against their
@@ -49,9 +59,10 @@ K3's time by case beside the bound, then drives the port's paths:
   plumbing cost, not multi-GPU scaling);
 
 decodes the streams with the port's decoder and checks every picture hash,
-and checks small encodes on the card (AI, LDP, RA and the per-CU search's
-IPPP and RA) against the same encodes on the CPU (whose plain path the tests
-hold to the JAX reference).  Every time printed stands beside the card's
+and checks small encodes on the card (AI, LDP, RA, rate-controlled LDP and
+RA, delta_qp_rd AI and LDP, field-coded AI and LDP, and the per-CU search's
+IPPP and RA) against the same encodes on the CPU (whose plain path the
+tests hold to the JAX reference).  Every time printed stands beside the card's
 name and power limit.  Every failure raises; the last line of standard
 output is the device JSON, the line before it the kernel table.  Needs a
 CUDA device and exits non-zero without one.
@@ -967,6 +978,31 @@ def _k4_pick_pairs():
              P._uni_select_all_plain, None)]
 
 
+def _plan_pairs():
+    """The same of every kernel a P or B plan launches: K1 and K2 (the
+    intra alternative), K5, K6, K7 (q-pel, bi and the list picks), K8 and
+    K4's emission, each through its wrapper (which launches the kernel on
+    a CUDA tensor) against its plain version."""
+    from hm16_2_tpu_torch.encode import inter_plan as P
+    from hm16_2_tpu_torch.encode import intra_rd as R
+    return [(R, "ref_buffers_multi", "K1", R.ref_buffers_multi,
+             lambda entries: [R._ref_buffers_plain(*e) for e in entries],
+             None),
+            (R, "size_rd", "K2", R.size_rd, R._size_rd_plain, 3),
+            (P, "int_me", "K5", P.int_me, P._int_me_plain, None),
+            (P, "frac_refine", "K7 q-pel", P.frac_refine,
+             P._frac_refine_plain, 5),
+            (P, "frac_refine_any", "K7 bi", P.frac_refine_any,
+             P._frac_refine_any_plain, 8),
+            (P, "uni_select_all", "K7 picks", P.uni_select_all,
+             P._uni_select_all_plain, None),
+            (P, "subpel_planes", "K6", P.subpel_planes,
+             P._subpel_planes_plain, None),
+            (P, "cu_rd", "K8 P", P.cu_rd, P._cu_rd_plain, 2),
+            (P, "cu_rd_b", "K8 B", P.cu_rd_b, P._cu_rd_b_plain, 2),
+            (P, "emit", "K4 P/B", P.emit, P._emit_plain, None)]
+
+
 @contextlib.contextmanager
 def _held_to_plain(check, pairs=None):
     """Inside the block each wrapper of `pairs` (default: the plan's K6 and
@@ -976,10 +1012,10 @@ def _held_to_plain(check, pairs=None):
     saved = [(mod, name, getattr(mod, name)) for mod, name, *_ in pairs]
 
     def held(label, kern, plain, size_at):
-        def run(*a):
-            got = kern(*a)
+        def run(*a, **kw):
+            got = kern(*a, **kw)
             check(label + (f" s={a[size_at]}" if size_at else ""), got,
-                  plain(*a))
+                  plain(*a, **kw))
             return got
         return run
 
@@ -1768,20 +1804,228 @@ def fallback_phase(frames, dev):
     return aus, counts
 
 
+@contextlib.contextmanager
+def _first_plan():
+    """Inside the block, the first P/B plan (`inter_plan._plan_device`)
+    records its arguments and packed plan in the yielded dict, with the
+    unwrapped function, so that it can be run again on the same inputs."""
+    from hm16_2_tpu_torch.encode import inter_plan as P
+    saved, seen = P._plan_device, {"fn": P._plan_device}
+
+    def plan(*a, **kw):
+        out = saved(*a, **kw)
+        seen.setdefault("call", (a, kw, out))
+        return out
+
+    P._plan_device = plan
+    try:
+        yield seen
+    finally:
+        P._plan_device = saved
+
+
+def _replay_held(seen, label, lam=None):
+    """Run the recorded plan again with every kernel of it held to its plain
+    version on the same card (`_plan_pairs`), and require the same packed
+    plan; with `lam`, at that lambda (and its square root) instead of the
+    recorded one.  Returns the number of kernel outputs compared."""
+    a, kw, out = seen["call"]
+    if lam is not None:
+        a = a[:4] + (lam, float(np.sqrt(lam))) + a[6:]
+        out = None
+    n_eq = 0
+
+    def same(lb, got, want):
+        nonlocal n_eq
+        _compare(f"{label} {lb}", _flat(got), _flat(want))
+        n_eq += 1
+
+    t0 = time.perf_counter()
+    with _held_to_plain(same, _plan_pairs()):
+        again = seen["fn"](*a, **kw)
+    if out is not None:
+        _compare(f"{label} plan run again", again, out)
+    print(f"{label}: lambda {a[4]!r}, sqrt lambda {a[5]!r}, QP {a[6]}: "
+          f"{n_eq} kernel outputs equal their plain versions "
+          f"({time.perf_counter() - t0:.1f} s)  [{CARD}]", flush=True)
+    return n_eq
+
+
+def _rc_pictures(enc):
+    """Record each picture's rate-control slice QP, lambda, target bits and
+    coded bits as the model is updated after it."""
+    rows, update = [], enc.rc.update_after_picture
+
+    def logged(actual_bits, header_bits=0):
+        p = enc.rc.pic
+        rows.append((p["qp"], p["lam"], p["target"], actual_bits))
+        return update(actual_bits, header_bits)
+
+    enc.rc.update_after_picture = logged
+    return rows
+
+
+# rate control's target: a few Mbit/s for 1080p at 30 fps
+RC_BPS, RC_FPS = 4_000_000, 30
+
+
+def rc_phase(frames, dev, ctu):
+    """HM's Low Delay P Main under R-lambda rate control (`ctu`: at CTU
+    level too) over IDR + one GOP of four P pictures through push_frame /
+    flush: the plans price with the model's lambda, not one derived from
+    the QP.  Prints each picture's slice QP, lambda and bits against its
+    target, fps and stage_ms of the P pictures, and holds every kernel of
+    the first P picture's plan to its plain version at that lambda (at
+    picture level also at the ends of the model's lambda range).  Returns
+    the AUs and the launch counts."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
+    H, W = frames[0][0].shape
+    n = len(frames)
+    enc = Encoder(EncoderConfig(W, H, qp=QP, intra_period=0, gop="ld",
+                                target_bps=RC_BPS, frame_rate=RC_FPS,
+                                total_frames=n, rc_ctu=ctu), dev)
+    rows = _rc_pictures(enc)
+    label = f"RC{' CTU' if ctu else ''} LDP {W}x{H} {RC_BPS} bps"
+    out = {}
+
+    def run():
+        aus, out["idr"] = _idr(lambda: enc.push_frame(
+            [p.astype("int32") for p in frames[0]], 0))
+        rest, out["wall"], out["stage"] = _timed_pictures(
+            enc, lambda: _push_all(enc, frames, 1), f"{label} P pictures", 6)
+        return aus + rest
+
+    with _k1_per_plan() as k1, _first_plan() as first:
+        aus, counts = _launches_of(K, run, label,
+                                   [k for k in K.LAUNCHES
+                                    if k not in B_ONLY + BAND + ("me_frame",)])
+    for poc, (qp, lam, target, bits) in enumerate(rows):
+        print(f"{label} POC {poc}: slice QP {qp}, lambda {lam!r}, {bits} "
+              f"bits against a target of {target}", flush=True)
+    if len(rows) != n:
+        raise AssertionError(f"{label}: {len(rows)} rate-control updates "
+                             f"for {n} pictures")
+    _report(label, n - 1, "P", out["idr"], out["wall"], out["stage"], aus)
+    _picks_per_picture(counts, n - 1, label)
+    _k1_once_per_plan(k1, n - 1, label)
+    _replay_held(first, f"{label} first P plan")
+    if not ctu:
+        # the ends of the model's lambda range (ratectrl's clip), at the
+        # first P plan's QP
+        for lam in (0.1, 10000.0):
+            _replay_held(first, f"{label} first P plan at the lambda clip",
+                         lam)
+    _decode_check(aus, n, label)
+    return aus, counts
+
+
+def dqp_phase(frames, dev):
+    """delta_qp_rd=1 (each picture trial-coded at QP - 1, QP, QP + 1, then
+    coded at the best) on HM's All Intra Main over two frames and on Low
+    Delay P Main over IDR + one GOP of four P pictures: asserts four plans
+    per picture by K4's and K1's launches; prints fps and stage_ms.
+    Returns {label: launch counts}."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
+    H, W = frames[0][0].shape
+    runs = {}
+    planes = lambda f: [p.astype("int32") for p in f]
+    for gop, n in (("AI", 2), ("LDP", len(frames))):
+        kw = dict(intra_period=1) if gop == "AI" else \
+            dict(intra_period=0, gop="ld")
+        enc = Encoder(EncoderConfig(W, H, qp=QP, delta_qp_rd=1, **kw), dev)
+        label = f"delta_qp_rd {gop} {W}x{H}"
+        need = INTRA if gop == "AI" else \
+            [k for k in K.LAUNCHES if k not in B_ONLY + BAND + ("me_frame",)]
+        t0 = time.perf_counter()
+        with _k1_per_plan() as k1:
+            aus, counts = _launches_of(
+                K, lambda: _push_all(enc, [planes(f) for f in frames[:n]]),
+                label, need)
+        wall = time.perf_counter() - t0
+        n_inter = 0 if gop == "AI" else n - 1
+        n_intra = n - n_inter
+        # 4 plans per picture: an AI plan is K1 once and K4 twice, a P plan
+        # K1 once, K4 once and the list picks once
+        want = {"plan_dp": 4 * (2 * n_intra + n_inter),
+                "ref_buffers": 4 * n, "inter_pick": 4 * n_inter}
+        got = {k: counts[k] for k in want}
+        print(f"{label}: launches {got} for {n} pictures (4 plans each)",
+              flush=True)
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, not {want}")
+        if n_inter:
+            _k1_once_per_plan(k1, 4 * n_inter, label)
+        print(f"{label}: {n} pictures in {wall:.3f} s = {n / wall:.3f} fps; "
+              f"bytes {[len(a) for a in aus]}  [{CARD}]", flush=True)
+        print(f"{label} stage_ms per picture: " + json.dumps(
+            {k: round(v / n, 3) for k, v in enc.stage_ms.items()})
+            + f"  [{CARD}]", flush=True)
+        _decode_check(aus, n, label)
+        runs[label] = counts
+    return runs
+
+
+def field_phase(dev, w=1920, h=1088):
+    """Field coding at 1920x1088 (544-row fields: eight 64-row CTU rows and
+    a 32-row one) through encode_stream: HM's All Intra Main over two
+    frames (four fields) and Low Delay P Main over three (six fields: IDR,
+    one GOP of four P, one low-delay B of the flush tail).  Prints fps and
+    stage_ms per field, asserts one plan per field by K1's launches, and
+    checks every field's hash.  Returns {label: launch counts}."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
+    frames = _frames(w, h, 3)
+    runs = {}
+    for gop, n in (("AI", 2), ("LDP", 3)):
+        kw = dict(intra_period=1) if gop == "AI" else \
+            dict(intra_period=0, gop="ld")
+        enc = Encoder(EncoderConfig(w, h, qp=QP, field_coding=True, **kw),
+                      dev)
+        label = f"field {gop} {w}x{h}"
+        need = INTRA if gop == "AI" else \
+            [k for k in K.LAUNCHES if k not in BAND + ("me_frame",)]
+        t0 = time.perf_counter()
+        with _k1_per_plan() as k1:
+            aus, counts = _launches_of(
+                K, lambda: list(enc.encode_stream(frames[:n])), label, need)
+        wall = time.perf_counter() - t0
+        if counts["ref_buffers"] != 2 * n:
+            raise AssertionError(f"{label}: {counts['ref_buffers']} K1 "
+                                 f"launches for {2 * n} fields")
+        if gop == "LDP":
+            _picks_per_picture(counts, 2 * n - 1, label)
+            _k1_once_per_plan(k1, 2 * n - 1, label)
+        print(f"{label}: {2 * n} fields of {w}x{h // 2} in {wall:.3f} s = "
+              f"{2 * n / wall:.3f} fields/s; bytes {[len(a) for a in aus]}  "
+              f"[{CARD}]", flush=True)
+        print(f"{label} stage_ms per field: " + json.dumps(
+            {k: round(v / (2 * n), 3) for k, v in enc.stage_ms.items()})
+            + f"  [{CARD}]", flush=True)
+        _decode_check(aus, 2 * n, label)
+        runs[label] = counts
+    return runs
+
+
 def small_checks(dev):
     """136x72 encodes on the card against the same encodes on the CPU: AI,
-    LDP, RA through the fused plans, and IPPP and RA through the per-CU
-    search (HM16_NO_INTER_PLAN)."""
+    LDP, RA through the fused plans; LDP under rate control (picture and
+    CTU level) and RA GOP 8 under it; delta_qp_rd on AI and LDP; field
+    coding of AI and LDP at 128x128 (64-row fields; 136x72's 36-row fields
+    hit the reference's fault F2); IPPP and RA through the per-CU search
+    (HM16_NO_INTER_PLAN)."""
     from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
     small = _frames(136, 72, 9)
     cpu = torch.device("cpu")
 
     def same(label, cfg, code):
         on_card, on_cpu = code(Encoder(cfg(), dev)), code(Encoder(cfg(), cpu))
+        size = f"{cfg().width}x{cfg().height}"
         if on_card != on_cpu:
-            raise AssertionError(f"136x72 {label} on the card differs from "
+            raise AssertionError(f"{size} {label} on the card differs from "
                                  "the CPU")
-        print(f"136x72 {label}: card bytes equal CPU plain-path bytes",
+        print(f"{size} {label}: card bytes equal CPU plain-path bytes",
               flush=True)
 
     frames_of = lambda enc, k: [enc.encode_frame(
@@ -1795,6 +2039,33 @@ def small_checks(dev):
     same("9-frame RA encode",
          lambda: EncoderConfig(136, 72, qp=QP, intra_period=32, gop="ra8"),
          lambda enc: _push_all(enc, small))
+    for ctu in (False, True):
+        same(f"5-frame LDP rate control at 200 kbps{', CTU level' * ctu}",
+             lambda: EncoderConfig(136, 72, qp=QP, intra_period=0, gop="ld",
+                                   target_bps=200000, total_frames=5,
+                                   rc_ctu=ctu),
+             lambda enc: _push_all(enc, small[:5]))
+    same("9-frame RA rate control at 200 kbps",
+         lambda: EncoderConfig(136, 72, qp=QP, intra_period=32, gop="ra8",
+                               target_bps=200000, total_frames=9),
+         lambda enc: _push_all(enc, small))
+    same("2-frame AI delta_qp_rd",
+         lambda: EncoderConfig(136, 72, qp=QP, intra_period=1,
+                               delta_qp_rd=1),
+         lambda enc: _push_all(enc, small[:2]))
+    same("3-frame LDP delta_qp_rd",
+         lambda: EncoderConfig(136, 72, qp=QP, intra_period=0, gop="ld",
+                               delta_qp_rd=1),
+         lambda enc: _push_all(enc, small[:3]))
+    square = _frames(128, 128, 3)
+    same("2-frame AI field coding",
+         lambda: EncoderConfig(128, 128, qp=QP, intra_period=1,
+                               field_coding=True),
+         lambda enc: list(enc.encode_stream(square[:2])))
+    same("3-frame LDP field coding",
+         lambda: EncoderConfig(128, 128, qp=QP, intra_period=0, gop="ld",
+                               field_coding=True),
+         lambda enc: list(enc.encode_stream(square)))
     with _env("HM16_NO_INTER_PLAN", "1"):
         same("4-frame IPPP per-CU search (RRSP, SBD)",
              lambda: EncoderConfig(136, 72, qp=QP, intra_period=8, rrsp=True,
@@ -2073,13 +2344,25 @@ def main():
     fb_aus, fb_counts = fallback_phase(frames[:2], dev)
     _decode_check(fb_aus, 2, "per-CU search")
 
+    # rate control, delta_qp_rd and field coding at 1080p and 1920x1088
+    t0 = time.perf_counter()
+    new = {f"RC{' CTU' * ctu}": rc_phase(frames[:5], dev, ctu)[1]
+           for ctu in (False, True)}
+    new.update(dqp_phase(frames[:5], dev))
+    new.update(field_phase(dev))
+    print(f"rate control, delta_qp_rd and field phases: "
+          f"{time.perf_counter() - t0:.1f} s  [{CARD}]", flush=True)
+
+    t0 = time.perf_counter()
     small_checks(dev)
+    print(f"small card-against-CPU checks: {time.perf_counter() - t0:.1f} s"
+          f"  [{CARD}]", flush=True)
     cli_counts = cli_phase()
     band_counts = banded_phase(frames, xga, dev)
 
-    old = {"AI": ai_counts, "LDP": ldp_counts, "RA": ra_counts,
-           "per-CU search": fb_counts, "CLI": cli_counts}
-    for label, c in old.items():
+    unbanded = {"AI": ai_counts, "LDP": ldp_counts, "RA": ra_counts,
+                "per-CU search": fb_counts, "CLI": cli_counts, **new}
+    for label, c in unbanded.items():
         if any(c[k] for k in BAND):
             raise AssertionError(f"{label} launched a band kernel: "
                                  f"{[k for k in BAND if c[k]]}")
@@ -2094,7 +2377,8 @@ def main():
     print(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s  [{CARD}]",
           flush=True)
 
-    runs = (ai_counts, ldp_counts, ra_counts, fb_counts, band_counts)
+    runs = (ai_counts, ldp_counts, ra_counts, fb_counts, band_counts,
+            *new.values())
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"hm16_2_tpu_torch/csrc/{SOURCES[k][0]}",

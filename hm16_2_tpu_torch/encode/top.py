@@ -323,18 +323,10 @@ class Encoder:
         """HEVC encoder whose device work (the I, P and B frame plans, the
         fallback's frame ME and 35-mode analysis) runs on `device`, a
         torch.device: the CUDA kernels on a CUDA device, their plain
-        PyTorch versions on the CPU.  Rate control, field coding and
-        delta_qp_rd are not ported and raise NotImplementedError."""
+        PyTorch versions on the CPU."""
         import torch
         if not isinstance(device, torch.device):
             raise TypeError(f"device must be a torch.device, got {device!r}")
-        unported = [name for name, on in (
-            ("rate control", cfg.target_bps),
-            ("field coding", getattr(cfg, "field_coding", False)),
-            ("delta_qp_rd", getattr(cfg, "delta_qp_rd", 0))) if on]
-        if unported:
-            raise NotImplementedError(
-                "not ported to the PyTorch port: " + ", ".join(unported))
         self.device = device
         self.field_coding = bool(getattr(cfg, "field_coding", False))
         if self.field_coding:

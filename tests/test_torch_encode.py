@@ -3,9 +3,11 @@ package's: the same Annex-B bytes for all-intra, the P structures
 (low-delay P, IPPP, weighted prediction, a pipelined P-only GOP table) and
 the B structures (random access GOP 8 with its pipelined plans, the
 low-delay B flush tail), the encoder CLI, pictures that decode with their
-MD5 hash intact, the refusal of every configuration that is not ported, and
-a port that runs with JAX and the JAX package absent.  The per-CU inter
-search (no fused plan) is in test_torch_inter_me_encode.py.
+MD5 hash intact, and a port that runs with JAX and the JAX package absent.
+The per-CU inter search (no fused plan) is in test_torch_inter_me_encode.py;
+rate control, DeltaQpRD and field coding in test_torch_encode_rc.py,
+_dqp.py and _field.py; the other admitted configurations in
+test_torch_encode_intra_configs.py and _inter_configs.py.
 """
 
 import os
@@ -62,22 +64,6 @@ def test_encode_frame_same_bytes(bits, chroma, rdo):
     _decode_ok(got, 1)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(gop_table=[dict(poc=1, qpoff=1, qpfac=0.5, refs=(-1,), type="B")],
-         field_coding=True),
-    dict(intra_period=-1, gop="ra8", target_bps=200000, total_frames=9),
-    dict(gop="ra8", delta_qp_rd=1),
-    dict(target_bps=200000, total_frames=4), dict(field_coding=True),
-    dict(delta_qp_rd=1)])
-def test_non_intra_configs_refused(kw):
-    """Rate control, field coding and delta_qp_rd are not ported, with any
-    GOP structure."""
-    cfg = dict(intra_period=1)
-    cfg.update(kw)
-    with pytest.raises(NotImplementedError):
-        PT.Encoder(RT.EncoderConfig(64, 64, **cfg), CPU)
-
-
 def test_device_is_required():
     with pytest.raises(TypeError):
         PT.Encoder(RT.EncoderConfig(64, 64, intra_period=1), "cpu")
@@ -85,10 +71,11 @@ def test_device_is_required():
 
 def test_runs_without_jax(tmp_path):
     """With jax and the whole JAX package unimportable, the port encodes
-    all-intra, low-delay P, random access and the per-CU inter search,
-    decodes each stream with its own decoder (every hash intact), runs its
-    encoder and decoder CLIs, imports its row-banded programs and runs
-    their benchmark over two CPU bands, and loads no module of the JAX
+    all-intra, low-delay P, random access, low-delay P under rate control,
+    field-coded all-intra and the per-CU inter search, decodes each stream
+    with its own decoder (every hash intact), runs its encoder and decoder
+    CLIs, imports its host tools and row-banded programs and runs the
+    bands' benchmark over two CPU bands, and loads no module of the JAX
     package."""
     code = """
 import os, sys
@@ -120,6 +107,10 @@ enc = Encoder(EncoderConfig(64, 64, intra_period=1), CPU)
 ok([enc.encode_frame(frames[0], 0)], 1)
 ok(push(EncoderConfig(64, 64, intra_period=0, gop='ld'), 5), 5)
 ok(push(EncoderConfig(64, 64, intra_period=32, gop='ra8'), 9), 9)
+ok(push(EncoderConfig(64, 64, intra_period=0, gop='ld', target_bps=100000,
+                      total_frames=5), 5), 5)
+enc = Encoder(EncoderConfig(64, 64, intra_period=1, field_coding=True), CPU)
+ok(list(enc.encode_stream(frames[:2])), 4)
 os.environ['HM16_NO_INTER_PLAN'] = '1'
 enc = Encoder(EncoderConfig(64, 64, intra_period=8, rrsp=True), CPU)
 ok([enc.encode_frame(f, i) for i, f in enumerate(frames[:3])], 3)
@@ -135,6 +126,9 @@ assert encode.main(['-c', 'cfg/encoder_lowdelay_P_main.cfg',
 with open(os.path.join(d, 'out.bin'), 'rb') as f:
     ok([f.read()], 3)
 assert decode.main([os.path.join(d, 'out.bin')]) == 0
+from hm16_2_tpu_torch.tools import (annexb_bytecount, bdrate,
+                                    bitrate_targeting, convert_bitdepth,
+                                    fit_bits_model)
 from hm16_2_tpu_torch.parallel import frame_shard, me_shard, mesh, plan_shard
 from hm16_2_tpu_torch.tools import scaling_bench
 assert scaling_bench.main(['--Devices', 'cpu,cpu', '--size', '128x128',
@@ -191,19 +185,6 @@ def test_cli_same_bytes(tmp_path):
     got = (tmp_path / "got.bin").read_bytes()
     assert got == (tmp_path / "ref.bin").read_bytes()
     _decode_ok(got, 5)
-
-
-@pytest.mark.parametrize("opts", [
-    ["--RateControl=1", "--TargetBitrate=200000"], ["--FieldCoding=1"],
-    ["--DeltaQpRD=1"]])
-def test_cli_refuses_unported(tmp_path, opts):
-    """The CLI builds the port's Encoder, which refuses rate control, field
-    coding and delta_qp_rd before reading any input."""
-    from hm16_2_tpu_torch.tools import encode as PE
-    with pytest.raises(NotImplementedError):
-        PE.main(["-i", str(tmp_path / "none.yuv"), "-b",
-                 str(tmp_path / "out.bin"), "-wdt", "64", "-hgt", "64",
-                 "--Device", "cpu"] + opts)
 
 
 def test_ippp_encode_frame_same_bytes():

@@ -2,11 +2,11 @@
 
 The port imports nothing of the JAX package: it keeps a copy of every host
 module it runs (headers, CABAC, the decoder, the commit engine and its C++
-sources, the encoder top level, the CLIs), at the same path under
-`hm16_2_tpu_torch/`.  Each copy equals its reference after the import
-rewrite `hm16_2_tpu.` -> `hm16_2_tpu_torch.`; the encoder top level and the
-encoder CLI differ only inside the named blocks that point them at the
-port's device code.
+sources, the encoder top level, the CLIs, the host tools), at the same
+path under `hm16_2_tpu_torch/`.  Each copy equals its reference after the
+import rewrite `hm16_2_tpu.` -> `hm16_2_tpu_torch.`; the encoder top level,
+the encoder CLI and the BD-rate harness differ only inside the named blocks
+that point them at the port's device code.
 """
 
 import ast
@@ -30,7 +30,9 @@ COPIES = [f"{m}.py" for m in (
     "headers/parse", "headers/sei", "headers/write", "io/__init__", "io/yuv",
     "native/__init__", "ops/deblock_ref", "ops/interp_ref", "ops/intra_ref",
     "ops/sao_ref", "ops/satd", "ops/transforms_ref", "tools/__init__",
-    "tools/decode")] + ["native/cabac_core.cpp", "native/dsp_core.cpp"]
+    "tools/annexb_bytecount", "tools/bitrate_targeting",
+    "tools/convert_bitdepth", "tools/decode", "tools/fit_bits_model",
+    "tools/realclip")] + ["native/cabac_core.cpp", "native/dsp_core.cpp"]
 
 # (function, first line, end line): the lines of the function from the one
 # holding `first` up to the one holding `end` (exclusive) may differ; a
@@ -49,6 +51,11 @@ NAMED = {
         (None, "import numpy as np", "from hm16_2_tpu_torch.config.options"),
         ("build_options", "o = Options()", 'o.add("InputFile"'),
         ("main", "enc = Encoder(", "fin = open(inp")],
+    "tools/bdrate.py": [
+        ("encode_ours", None, None),
+        ("run", "def run(", "frames = read_yuv_frames"),
+        ("run", "bs, dt = encode_ours(", "op, ob = seq_psnr_bits"),
+        ("main", 'ap.add_argument("--qps"', "print(json.dumps(")],
 }
 
 
@@ -107,8 +114,9 @@ def test_copy_equals_reference(path):
 @pytest.mark.parametrize("path", sorted(NAMED))
 def test_copy_differs_only_in_named_blocks(path):
     """The encoder top level (device, plan submission and fetch, the
-    pipelined RA plans, the fallback's frame ME and 35-mode analysis) and
-    the encoder CLI (its Device option) differ from the reference only in
+    pipelined RA plans, the fallback's frame ME and 35-mode analysis), the
+    encoder CLI (its Device option) and the BD-rate harness (its encode
+    arm's device and Device option) differ from the reference only in
     their named blocks."""
     ref = _cut(_rewrite(_read(os.path.join("hm16_2_tpu", path))), NAMED[path])
     got = _cut(_read(os.path.join("hm16_2_tpu_torch", path)), NAMED[path])
