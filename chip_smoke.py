@@ -38,6 +38,11 @@ K3's time by case beside the bound, then drives the port's paths:
 - the per-CU inter search (no fused plan, HM16_NO_INTER_PLAN, with the
   fork's RRSP fast partitioning) over an IDR and one P picture of 1080p
   through `encode_frame`;
+- HM's All Intra Main10 over three 1080p frames and Random Access Main10
+  over IDR + one GOP of eight B pictures on 10-bit content (`main10_phase`:
+  the configurations tools/encode.py builds from the Main10 cfg files; the
+  first 10-bit I and B plans run again with every kernel held to its plain
+  version);
 - HM's Low Delay P Main under R-lambda rate control at 4 Mbit/s, at
   picture and at CTU level, over five 1080p frames (`rc_phase`: each
   picture's QP, lambda and bits against its target; every kernel of the
@@ -59,13 +64,17 @@ K3's time by case beside the bound, then drives the port's paths:
   plumbing cost, not multi-GPU scaling);
 
 decodes the streams with the port's decoder and checks every picture hash,
-and checks small encodes on the card (AI, LDP, RA, rate-controlled LDP and
-RA, delta_qp_rd AI and LDP, field-coded AI and LDP, and the per-CU search's
-IPPP and RA) against the same encodes on the CPU (whose plain path the
-tests hold to the JAX reference).  Every time printed stands beside the card's
-name and power limit.  Every failure raises; the last line of standard
-output is the device JSON, the line before it the kernel table.  Needs a
-CUDA device and exits non-zero without one.
+holds every 1080p stream (AI, LDP, RA, the per-CU search, Main10 AI and
+RA), its input planes first, to the JAX package's SHA-256 pinned in
+`hm16_2_tpu_torch/tools/stream_digest.py` (the card's machine has no JAX;
+the tests reproduce the pins from the JAX package), and checks small
+encodes on the card (AI, LDP, RA, rate-controlled LDP and RA, delta_qp_rd
+AI and LDP, field-coded AI and LDP, and the per-CU search's IPPP and RA)
+against the same encodes on the CPU and both against the pinned digests.
+Every time printed stands beside the card's name and power limit.  Every
+failure raises; the last line of standard output is the device JSON, the
+line before it the kernel table.  Needs a CUDA device and exits non-zero
+without one.
 """
 
 from __future__ import annotations
@@ -1585,20 +1594,6 @@ def _push_all(enc, frames, first=0):
     return aus + enc.flush()
 
 
-@contextlib.contextmanager
-def _env(name, value):
-    """Set one environment switch of the encoder for the block."""
-    old = os.environ.get(name)
-    os.environ[name] = value
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ[name]
-        else:
-            os.environ[name] = old
-
-
 # K4-K8's kernels by the names the profiler gives them
 KERNEL_SPLIT = {"K4 plan_dp": ("plan_pre_kernel", "plan_ctu_kernel",
                                "emit_inter_kernel"),
@@ -1700,21 +1695,50 @@ def _k1_once_per_plan(seen, n, label):
                              f"in each of {n}")
 
 
-def ldp_phase(frames, dev):
-    """HM's Low Delay P Main over IDR + one GOP of four P pictures through
-    push_frame / flush; prints fps, the P pictures' stage_ms and their
-    device busy share.  Returns the AUs and the launch counts."""
+def ai_phase(recipe, frames, dev):
+    """HM's All Intra Main over three frames through encode_stream
+    (`recipe`, stream_digest's "AI"): prints fps and stage_ms, checks every
+    picture hash and that encode_frame of frame 0 writes AU 0.  Returns
+    the AUs and the launch counts."""
     from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
-    H, W = frames[0][0].shape
-    enc = Encoder(EncoderConfig(W, H, qp=QP, intra_period=0, gop="ld"), dev)
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    W, H, n = recipe.width, recipe.height, len(frames)
+    new_encoder = lambda: S.port_encoder(dev)(S.config(recipe))
+    enc = new_encoder()
+    t0 = time.perf_counter()
+    aus, counts = _launches_of(
+        K, lambda: S.code(recipe, enc, frames), f"AI {W}x{H}", INTRA)
+    wall = time.perf_counter() - t0
+    print(f"encode_stream {W}x{H} AI QP{QP}: {n} frames in {wall:.3f} s = "
+          f"{n / wall:.3f} fps; bytes {[len(a) for a in aus]}  [{CARD}]",
+          flush=True)
+    print("stage_ms per frame: " + json.dumps(
+        {k: round(v / n, 3) for k, v in enc.stage_ms.items()})
+        + f"  [{CARD}]", flush=True)
+    _decode_check(aus, n, "AI")
+    au0 = new_encoder().encode_frame(
+        [p.astype("int32") for p in frames[0]], 0)
+    if au0 != aus[0]:
+        raise AssertionError("encode_frame differs from encode_stream's AU 0")
+    print("encode_frame(frame 0) equals encode_stream AU 0", flush=True)
+    return aus, counts
+
+
+def ldp_phase(recipe, frames, dev):
+    """HM's Low Delay P Main over IDR + one GOP of four P pictures through
+    push_frame / flush (`recipe`, stream_digest's "LDP"); prints fps, the
+    P pictures' stage_ms and their device busy share.  Returns the AUs and
+    the launch counts."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    W, H = recipe.width, recipe.height
+    enc = S.port_encoder(dev)(S.config(recipe))
     out = {}
 
     def run():
-        aus, out["idr"] = _idr(lambda: enc.push_frame(
-            [p.astype("int32") for p in frames[0]], 0))
+        aus, out["idr"] = _idr(lambda: S.code(recipe, enc, frames, 0, 1))
         rest, out["wall"], out["stage"] = _timed_pictures(
-            enc, lambda: _push_all(enc, frames, 1), "P pictures", 12)
+            enc, lambda: S.code(recipe, enc, frames, 1), "P pictures", 12)
         return aus + rest
 
     with _k1_per_plan() as k1:
@@ -1728,15 +1752,15 @@ def ldp_phase(frames, dev):
     return aus, counts
 
 
-def ra_phase(frames, dev):
+def ra_phase(recipe, frames, dev):
     """HM's Random Access Main over IDR + one GOP of eight B pictures through
-    push_frame / flush; prints fps over the B pictures, their stage_ms, the
-    number of plans enqueued ahead (pictures 3, 6, 7) and the device busy
-    share of the B pictures.  Returns the AUs and the launch counts."""
+    push_frame / flush (`recipe`, stream_digest's "RA"); prints fps over
+    the B pictures, their stage_ms, the number of plans enqueued ahead
+    (pictures 3, 6, 7) and the device busy share of the B pictures.  Returns the AUs and the launch counts."""
     from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
-    H, W = frames[0][0].shape
-    enc = Encoder(EncoderConfig(W, H, qp=QP, intra_period=32, gop="ra8"), dev)
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    W, H = recipe.width, recipe.height
+    enc = S.port_encoder(dev)(S.config(recipe))
     ahead = []
     predispatch = enc._predispatch_ra
 
@@ -1750,10 +1774,9 @@ def ra_phase(frames, dev):
     out = {}
 
     def run():
-        aus, out["idr"] = _idr(lambda: enc.push_frame(
-            [p.astype("int32") for p in frames[0]], 0))
+        aus, out["idr"] = _idr(lambda: S.code(recipe, enc, frames, 0, 1))
         rest, out["wall"], out["stage"] = _timed_pictures(
-            enc, lambda: _push_all(enc, frames, 1), "B pictures", 14)
+            enc, lambda: S.code(recipe, enc, frames, 1), "B pictures", 14)
         return aus + rest
 
     with _k1_per_plan() as k1:
@@ -1771,29 +1794,28 @@ def ra_phase(frames, dev):
     return aus, counts
 
 
-def fallback_phase(frames, dev):
+def fallback_phase(recipe, frames, dev):
     """The per-CU inter search on an IDR and P pictures (encode_frame,
-    intra period 8, QP 32, HM16_NO_INTER_PLAN, RRSP on): each P picture
-    runs one frame ME on the card (K5 in me_frame's mode) and its CU search
-    and commit on the host.  Prints s per P picture, their stage_ms, the
+    intra period 8, QP 32, HM16_NO_INTER_PLAN, RRSP on; `recipe`,
+    stream_digest's "per-CU search"): each P picture runs one frame ME on
+    the card (K5 in me_frame's mode) and its CU search and commit on the
+    host.  Prints s per P picture, their stage_ms, the
     device busy share and me_frame's launches.  Returns the AUs and the
     launch counts."""
     from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
-    H, W = frames[0][0].shape
-    enc = Encoder(EncoderConfig(W, H, qp=QP, intra_period=8, rrsp=True), dev)
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    W, H = recipe.width, recipe.height
+    enc = S.port_encoder(dev)(S.config(recipe))
     out = {}
-    planes = [[p.astype("int32") for p in f] for f in frames]
 
     def run():
-        aus, out["idr"] = _idr(lambda: [enc.encode_frame(planes[0], 0)])
+        aus, out["idr"] = _idr(lambda: S.code(recipe, enc, frames, 0, 1))
         rest, out["wall"], out["stage"] = _timed_pictures(
-            enc, lambda: [enc.encode_frame(planes[poc], poc)
-                          for poc in range(1, len(frames))],
+            enc, lambda: S.code(recipe, enc, frames, 1),
             "P pictures of the per-CU search", 10)
         return aus + rest
 
-    with _env("HM16_NO_INTER_PLAN", "1"):
+    with S.environ(recipe):
         aus, counts = _launches_of(K, run, f"per-CU search {W}x{H}",
                                    INTRA + ("me_frame",))
     if any(counts[k] for k in PLAN_ONLY):
@@ -1805,30 +1827,48 @@ def fallback_phase(frames, dev):
 
 
 @contextlib.contextmanager
-def _first_plan():
-    """Inside the block, the first P/B plan (`inter_plan._plan_device`)
-    records its arguments and packed plan in the yielded dict, with the
-    unwrapped function, so that it can be run again on the same inputs."""
-    from hm16_2_tpu_torch.encode import inter_plan as P
-    saved, seen = P._plan_device, {"fn": P._plan_device}
+def _first_plan(intra=False):
+    """Inside the block, the first P/B plan (`inter_plan._plan_device`; with
+    `intra`, the first I plan, `intra_rd._plan_device`) records its
+    arguments and packed plan in the yielded dict, with the unwrapped
+    function, so that it can be run again on the same inputs."""
+    from hm16_2_tpu_torch.encode import inter_plan, intra_rd
+    mod = intra_rd if intra else inter_plan
+    saved, seen = mod._plan_device, {"fn": mod._plan_device}
 
     def plan(*a, **kw):
         out = saved(*a, **kw)
         seen.setdefault("call", (a, kw, out))
         return out
 
-    P._plan_device = plan
+    mod._plan_device = plan
     try:
         yield seen
     finally:
-        P._plan_device = saved
+        mod._plan_device = saved
 
 
-def _replay_held(seen, label, lam=None):
+def _intra_pairs():
+    """The same as `_plan_pairs` of every kernel an I plan launches: K1,
+    K2, K3 and K4's two launches."""
+    from hm16_2_tpu_torch.encode import intra_rd as R
+    return [(R, "ref_buffers_multi", "K1", R.ref_buffers_multi,
+             lambda entries: [R._ref_buffers_plain(*e) for e in entries],
+             None),
+            (R, "size_rd", "K2", R.size_rd, R._size_rd_plain, 3),
+            (R, "cand_rd", "K3", R.cand_rd,
+             lambda b, k, m, s, bd, qp, is_luma=False, use_dst=False:
+             R._cand_rd_plain(b, k, m, s, bd, qp, is_luma, use_dst), 3),
+            (R, "plan_pre", "K4 pre", R.plan_pre, R._plan_pre_plain, None),
+            (R, "plan_dp", "K4 CTU", R.plan_dp, R._plan_ctu_plain, None)]
+
+
+def _replay_held(seen, label, lam=None, pairs=None):
     """Run the recorded plan again with every kernel of it held to its plain
-    version on the same card (`_plan_pairs`), and require the same packed
-    plan; with `lam`, at that lambda (and its square root) instead of the
-    recorded one.  Returns the number of kernel outputs compared."""
+    version on the same card (`pairs`, default `_plan_pairs`: those of a
+    P/B plan), and require the same packed plan; with `lam`, at that lambda
+    (and its square root) instead of the recorded one.  Returns the number
+    of kernel outputs compared."""
     a, kw, out = seen["call"]
     if lam is not None:
         a = a[:4] + (lam, float(np.sqrt(lam))) + a[6:]
@@ -1841,14 +1881,89 @@ def _replay_held(seen, label, lam=None):
         n_eq += 1
 
     t0 = time.perf_counter()
-    with _held_to_plain(same, _plan_pairs()):
+    with _held_to_plain(same, _plan_pairs() if pairs is None else pairs):
         again = seen["fn"](*a, **kw)
     if out is not None:
         _compare(f"{label} plan run again", again, out)
-    print(f"{label}: lambda {a[4]!r}, sqrt lambda {a[5]!r}, QP {a[6]}: "
-          f"{n_eq} kernel outputs equal their plain versions "
+    at = (f"lambda {a[3]!r}, QP {kw['qp']}" if "cqp0" in kw else
+          f"lambda {a[4]!r}, sqrt lambda {a[5]!r}, QP {a[6]}")
+    print(f"{label}: {at}: {n_eq} kernel outputs equal their plain versions "
           f"({time.perf_counter() - t0:.1f} s)  [{CARD}]", flush=True)
     return n_eq
+
+
+def _pinned(name, frames, aus):
+    """Hold the stream of recipe `name` to the JAX package's (stream_digest
+    PINNED): its input planes first, then each AU.  Raises at a difference,
+    naming the recipe, the first differing AU and its lengths."""
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    bad = S.mismatch(name, S.digest(frames, aus))
+    if bad:
+        raise AssertionError(f"{bad}; recipe {S.RECIPES[name]}")
+    print(f"{name}: input and stream ({len(aus)} AUs, sha256 "
+          f"{S.PINNED[name]['stream']}) equal the JAX package's (PINNED)",
+          flush=True)
+
+
+def main10_phase(dev, ai=None, ra=None):
+    """HM's All Intra Main10 over three 1080p frames (encode_stream) and
+    Random Access Main10 over IDR + one GOP of eight B pictures (push_frame
+    / flush), on 10-bit content (stream_digest's "AI-Main10" and
+    "RA-Main10", the configurations tools/encode.py builds from the Main10
+    cfg files): prints pictures/s, stage_ms and the launches per picture,
+    checks every picture hash and each stream against PINNED, and runs the
+    first 10-bit I plan and the first 10-bit B plan of RA again with every
+    kernel held to its plain version.  Returns {label: launch counts}."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    recipes = (ai or S.RECIPES["AI-Main10"], ra or S.RECIPES["RA-Main10"])
+    runs = {}
+    for r in recipes:
+        frames = S.make_frames(r)
+        n, label = r.frames, f"{r.name} {r.width}x{r.height}"
+        enc = S.port_encoder(dev)(S.config(r))
+        out = {}
+        if r.drive == "encode_stream":
+            need = INTRA
+
+            def run():
+                aus, out["wall"] = _idr(lambda: S.code(r, enc, frames))
+                out["stage"] = dict(enc.stage_ms)
+                return aus
+        else:
+            need = [k for k in K.LAUNCHES if k not in BAND + (
+                "inter_cu_rd", "me_frame")]
+
+            def run():
+                aus, out["idr"] = _idr(lambda: S.code(r, enc, frames, 0, 1))
+                rest, out["wall"], out["stage"] = _timed_pictures(
+                    enc, lambda: S.code(r, enc, frames, 1),
+                    f"{label} B pictures", 8)
+                return aus + rest
+
+        with _first_plan(intra=True) as first_i, _first_plan() as first_b:
+            aus, counts = _launches_of(K, run, label, need)
+        if "idr" in out:
+            _report(label, n - 1, "B", out["idr"], out["wall"],
+                    out["stage"], aus)
+        else:
+            print(f"{label}: {n} pictures in {out['wall']:.3f} s = "
+                  f"{n / out['wall']:.3f} pictures/s; bytes "
+                  f"{[len(a) for a in aus]}  [{CARD}]", flush=True)
+            print("stage_ms per picture: " + json.dumps(
+                {k: round(v / n, 3) for k, v in out["stage"].items()})
+                + f"  [{CARD}]", flush=True)
+        print(f"{label} launches per picture: " + json.dumps(
+            {k: v / n for k, v in counts.items() if v}) + f"  [{CARD}]",
+            flush=True)
+        _pinned(r.name, frames, aus)
+        if "idr" in out:
+            _replay_held(first_i, f"{label} first I plan",
+                         pairs=_intra_pairs())
+            _replay_held(first_b, f"{label} first B plan")
+        _decode_check(aus, n, label)
+        runs[label] = counts
+    return runs
 
 
 def _rc_pictures(enc):
@@ -2009,72 +2124,32 @@ def field_phase(dev, w=1920, h=1088):
 
 
 def small_checks(dev):
-    """136x72 encodes on the card against the same encodes on the CPU: AI,
-    LDP, RA through the fused plans; LDP under rate control (picture and
-    CTU level) and RA GOP 8 under it; delta_qp_rd on AI and LDP; field
-    coding of AI and LDP at 128x128 (64-row fields; 136x72's 36-row fields
-    hit the reference's fault F2); IPPP and RA through the per-CU search
-    (HM16_NO_INTER_PLAN)."""
-    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
-    small = _frames(136, 72, 9)
+    """The small recipes of stream_digest (136x72 and 128x128: AI, LDP, RA
+    through the fused plans; LDP under rate control at picture and CTU
+    level and RA GOP 8 under it; delta_qp_rd on AI and LDP; field coding
+    of AI and LDP at 128x128, whose 64-row fields avoid the reference's
+    fault F2; IPPP and RA through the per-CU search) on the card against
+    the same encodes on the CPU, and both against the JAX package's
+    pinned digests: a card that differs from the CPU and from PINNED
+    points at the kernels, a card and a CPU that differ from PINNED
+    together at the machine."""
+    from hm16_2_tpu_torch.tools import stream_digest as S
     cpu = torch.device("cpu")
-
-    def same(label, cfg, code):
-        on_card, on_cpu = code(Encoder(cfg(), dev)), code(Encoder(cfg(), cpu))
-        size = f"{cfg().width}x{cfg().height}"
-        if on_card != on_cpu:
-            raise AssertionError(f"{size} {label} on the card differs from "
-                                 "the CPU")
-        print(f"{size} {label}: card bytes equal CPU plain-path bytes",
-              flush=True)
-
-    frames_of = lambda enc, k: [enc.encode_frame(
-        [p.astype("int32") for p in f], i) for i, f in enumerate(small[:k])]
-    same("3-frame AI encode",
-         lambda: EncoderConfig(136, 72, qp=QP, intra_period=1),
-         lambda enc: list(enc.encode_stream(small[:3])))
-    same("5-frame LDP encode",
-         lambda: EncoderConfig(136, 72, qp=QP, intra_period=0, gop="ld"),
-         lambda enc: _push_all(enc, small[:5]))
-    same("9-frame RA encode",
-         lambda: EncoderConfig(136, 72, qp=QP, intra_period=32, gop="ra8"),
-         lambda enc: _push_all(enc, small))
-    for ctu in (False, True):
-        same(f"5-frame LDP rate control at 200 kbps{', CTU level' * ctu}",
-             lambda: EncoderConfig(136, 72, qp=QP, intra_period=0, gop="ld",
-                                   target_bps=200000, total_frames=5,
-                                   rc_ctu=ctu),
-             lambda enc: _push_all(enc, small[:5]))
-    same("9-frame RA rate control at 200 kbps",
-         lambda: EncoderConfig(136, 72, qp=QP, intra_period=32, gop="ra8",
-                               target_bps=200000, total_frames=9),
-         lambda enc: _push_all(enc, small))
-    same("2-frame AI delta_qp_rd",
-         lambda: EncoderConfig(136, 72, qp=QP, intra_period=1,
-                               delta_qp_rd=1),
-         lambda enc: _push_all(enc, small[:2]))
-    same("3-frame LDP delta_qp_rd",
-         lambda: EncoderConfig(136, 72, qp=QP, intra_period=0, gop="ld",
-                               delta_qp_rd=1),
-         lambda enc: _push_all(enc, small[:3]))
-    square = _frames(128, 128, 3)
-    same("2-frame AI field coding",
-         lambda: EncoderConfig(128, 128, qp=QP, intra_period=1,
-                               field_coding=True),
-         lambda enc: list(enc.encode_stream(square[:2])))
-    same("3-frame LDP field coding",
-         lambda: EncoderConfig(128, 128, qp=QP, intra_period=0, gop="ld",
-                               field_coding=True),
-         lambda enc: list(enc.encode_stream(square)))
-    with _env("HM16_NO_INTER_PLAN", "1"):
-        same("4-frame IPPP per-CU search (RRSP, SBD)",
-             lambda: EncoderConfig(136, 72, qp=QP, intra_period=8, rrsp=True,
-                                   sbd=True),
-             lambda enc: frames_of(enc, 4))
-        same("9-frame RA per-CU search",
-             lambda: EncoderConfig(136, 72, qp=QP, intra_period=32,
-                                   gop="ra8"),
-             lambda enc: _push_all(enc, small))
+    for name in S.SMALL:
+        r = S.RECIPES[name]
+        frames = S.make_frames(r)
+        on_card = S.encode(r, S.port_encoder(dev), frames)
+        on_cpu = S.encode(r, S.port_encoder(cpu), frames)
+        card = S.mismatch(name, S.digest(frames, on_card))
+        host = S.mismatch(name, S.digest(frames, on_cpu))
+        if on_card != on_cpu or card or host:
+            raise AssertionError(
+                f"{name}: card bytes "
+                f"{'equal' if on_card == on_cpu else 'differ from'} the "
+                f"CPU's; card against PINNED: {card or 'equal'}; CPU "
+                f"against PINNED: {host or 'equal'}; recipe {r}")
+        print(f"{name}: card bytes equal the CPU plain path's and the JAX "
+              "package's (PINNED)", flush=True)
 
 
 @contextlib.contextmanager
@@ -2235,7 +2310,6 @@ def main():
     sys.path.insert(0, ROOT)
     from hm16_2_tpu_torch import kernels as K
     from hm16_2_tpu_torch import native
-    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
 
     CARD = _card_line()
     print(CARD, flush=True)
@@ -2266,7 +2340,9 @@ def main():
         raise AssertionError("native commit engine did not build")
 
     t0 = time.perf_counter()
-    frames = [[p.copy() for p in f] for f in _frames(W, H, 9)]
+    # the content of the 8-bit 1080p recipes (each codes a prefix of RA's)
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    frames = S.make_frames(S.RECIPES["RA"])
     print(f"frames {W}x{H} made in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -2299,8 +2375,7 @@ def main():
 
     # all-intra: warm-up frame, then a timed 3-frame encode_stream
     from hm16_2_tpu_torch.encode.intra_rd import fetch_plan
-    cfg = lambda: EncoderConfig(W, H, qp=QP, intra_period=1)
-    warm = Encoder(cfg(), dev)
+    warm = S.port_encoder(dev)(S.config(S.RECIPES["AI"]))
     list(warm.encode_stream(frames[3:4]))
     planes = [p.astype("int32") for p in frames[3]]
     t0 = time.perf_counter()
@@ -2309,40 +2384,39 @@ def main():
     print(f"frame plan alone (upload, kernels, packed plan back): "
           f"{(time.perf_counter() - t0) / 5 * 1e3:.3f} ms per frame  "
           f"[{CARD}]", flush=True)
-    enc = Encoder(cfg(), dev)
-    t0 = time.perf_counter()
-    aus, ai_counts = _launches_of(
-        K, lambda: list(enc.encode_stream(frames[:3])), f"AI {W}x{H}", INTRA)
-    wall = time.perf_counter() - t0
-    print(f"AI launches per frame: plan_dp {ai_counts['plan_dp'] / 3}, "
-          f"ref_buffers {ai_counts['ref_buffers'] / 3}", flush=True)
-    if (ai_counts["plan_dp"], ai_counts["ref_buffers"]) != (2 * 3, 1 * 3):
+    ai = S.RECIPES["AI"]
+    aus, ai_counts = ai_phase(ai, frames[:ai.frames], dev)
+    print(f"AI launches per frame: plan_dp {ai_counts['plan_dp'] / ai.frames}"
+          f", ref_buffers {ai_counts['ref_buffers'] / ai.frames}", flush=True)
+    if (ai_counts["plan_dp"], ai_counts["ref_buffers"]) != (2 * ai.frames,
+                                                            ai.frames):
         raise AssertionError("AI: K4 not 2 launches per frame or K1 not 1")
-    print(f"encode_stream {W}x{H} AI QP{QP}: 3 frames in {wall:.3f} s = "
-          f"{3 / wall:.3f} fps; bytes {[len(a) for a in aus]}  [{CARD}]",
-          flush=True)
-    print("stage_ms per frame: " + json.dumps(
-        {k: round(v / 3, 3) for k, v in enc.stage_ms.items()})
-        + f"  [{CARD}]", flush=True)
-    _decode_check(aus, 3, "AI")
-    au0 = Encoder(cfg(), dev).encode_frame(
-        [p.astype("int32") for p in frames[0]], 0)
-    if au0 != aus[0]:
-        raise AssertionError("encode_frame differs from encode_stream's AU 0")
-    print("encode_frame(frame 0) equals encode_stream AU 0", flush=True)
+    _pinned("AI", frames[:ai.frames], aus)
 
     # low-delay P: IDR + one GOP of four P pictures
-    ldp_aus, ldp_counts = ldp_phase(frames[:5], dev)
-    _decode_check(ldp_aus, 5, "LDP")
+    ldp = S.RECIPES["LDP"]
+    ldp_aus, ldp_counts = ldp_phase(ldp, frames[:ldp.frames], dev)
+    _decode_check(ldp_aus, ldp.frames, "LDP")
+    _pinned("LDP", frames[:ldp.frames], ldp_aus)
 
     # random access: IDR + one GOP of eight B pictures
-    ra_aus, ra_counts = ra_phase(frames, dev)
-    _decode_check(ra_aus, 9, "RA")
+    ra = S.RECIPES["RA"]
+    ra_aus, ra_counts = ra_phase(ra, frames[:ra.frames], dev)
+    _decode_check(ra_aus, ra.frames, "RA")
+    _pinned("RA", frames[:ra.frames], ra_aus)
 
     # the per-CU inter search: IDR + one P picture without a fused plan (its
     # host search takes about a minute per 1080p P picture)
-    fb_aus, fb_counts = fallback_phase(frames[:2], dev)
-    _decode_check(fb_aus, 2, "per-CU search")
+    fb = S.RECIPES["per-CU search"]
+    fb_aus, fb_counts = fallback_phase(fb, frames[:fb.frames], dev)
+    _decode_check(fb_aus, fb.frames, "per-CU search")
+    _pinned("per-CU search", frames[:fb.frames], fb_aus)
+
+    # Main10: AI and RA at 1080p on 10-bit content
+    t0 = time.perf_counter()
+    main10 = main10_phase(dev)
+    print(f"Main10 phase: {time.perf_counter() - t0:.1f} s  [{CARD}]",
+          flush=True)
 
     # rate control, delta_qp_rd and field coding at 1080p and 1920x1088
     t0 = time.perf_counter()
@@ -2361,7 +2435,8 @@ def main():
     band_counts = banded_phase(frames, xga, dev)
 
     unbanded = {"AI": ai_counts, "LDP": ldp_counts, "RA": ra_counts,
-                "per-CU search": fb_counts, "CLI": cli_counts, **new}
+                "per-CU search": fb_counts, "CLI": cli_counts, **main10,
+                **new}
     for label, c in unbanded.items():
         if any(c[k] for k in BAND):
             raise AssertionError(f"{label} launched a band kernel: "
@@ -2378,7 +2453,7 @@ def main():
           flush=True)
 
     runs = (ai_counts, ldp_counts, ra_counts, fb_counts, band_counts,
-            *new.values())
+            *main10.values(), *new.values())
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"hm16_2_tpu_torch/csrc/{SOURCES[k][0]}",

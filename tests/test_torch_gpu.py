@@ -286,3 +286,14 @@ def test_banded_ra_on_card_equals_cpu(cuda):
     assert on_card[0] == on_cpu and on_card[1] == on_cpu
     pics = Decoder().decode_stream(b"".join(on_cpu))
     assert [p.hash_ok for p in pics] == [True] * 9
+
+
+@pytest.mark.gpu
+def test_small_stream_on_card_pinned(cuda):
+    """A small recipe coded on the card writes the JAX package's stream
+    (stream_digest.PINNED)."""
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    r = S.RECIPES["136x72 RA"]
+    frames = S.make_frames(r)
+    got = S.digest(frames, S.encode(r, S.port_encoder(cuda), frames))
+    assert S.mismatch(r.name, got) is None
