@@ -59,27 +59,33 @@ K3's time by case beside the bound, then drives the port's paths:
   plain versions (1080p, and 1024x768, HM's class F size, over 2 and 4
   bands with four references), the banded grids against the whole
   picture's, two 1080p AI frames with the intra plan banded and a 1024x768
-  RA GOP 8 with both plans banded over 2 and 4 bands against the unbanded
-  bytes, and the port's scaling_bench (bands sharing one card: the
+  RA GOP 8 with both plans banded over 2 and 4 bands, each against the
+  unbanded bytes where the JAX package's two streams are equal, and the
+  port's scaling_bench (bands sharing one card: the
   plumbing cost, not multi-GPU scaling);
 
 decodes the streams with the port's decoder and checks every picture hash,
-holds every 1080p stream (AI, LDP, RA, the per-CU search, Main10 AI and
-RA), its input planes first, to the JAX package's SHA-256 pinned in
-`hm16_2_tpu_torch/tools/stream_digest.py` (the card's machine has no JAX;
-the tests reproduce the pins from the JAX package), and checks small
-encodes on the card (AI, LDP, RA, rate-controlled LDP and RA, delta_qp_rd
-AI and LDP, field-coded AI and LDP, and the per-CU search's IPPP and RA)
-against the same encodes on the CPU and both against the pinned digests.
-Every time printed stands beside the card's name and power limit.  Every
-failure raises; the last line of standard output is the device JSON, the
-line before it the kernel table.  Needs a CUDA device and exits non-zero
-without one.
+holds every stream it encodes (AI, LDP, RA, the per-CU search, Main10 AI
+and RA, rate control at picture and CTU level, delta_qp_rd AI and LDP,
+field-coded AI and LDP, the banded 1080p AI, the 1024x768 RA and its
+banded runs over 2 and 4 bands), its input planes first, to the JAX
+package's SHA-256 pinned in `hm16_2_tpu_torch/tools/stream_digest.py`
+(the card's machine has no JAX; the tests reproduce the pins from the JAX
+package), and checks small encodes on the card (AI, LDP, RA,
+rate-controlled LDP and RA, delta_qp_rd AI and LDP, field-coded AI and
+LDP, the per-CU search's IPPP and RA, and an AI banded over 2 bands whose
+stream shows the reference's zero halo) against the same encodes on the
+CPU and both against the pinned digests.  Every time printed stands beside
+the card's name and power limit, and each phase's seconds are printed at
+the end.  Every failure raises; the last line of standard output is the
+device JSON, the line before it the kernel table.  Needs a CUDA device and
+exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -98,12 +104,6 @@ W, H, QP = 1920, 1080, 32
 # int32 and float32 operations are held to
 HBM_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
 CARD = "card not read"
-
-
-def _frames(w, h, n):
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from make_fixtures import make_yuv
-    return make_yuv(w, h, n, seed=42)
 
 
 def _card_line():
@@ -1561,6 +1561,18 @@ def _ptxas(report, names):
     return out
 
 
+PHASE_S = {}                    # seconds of each phase of main
+
+
+@contextlib.contextmanager
+def _phase(label):
+    """Time the block as phase `label` of main, beside the card."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_S[label] = time.perf_counter() - t0
+    print(f"phase {label}: {PHASE_S[label]:.1f} s  [{CARD}]", flush=True)
+
+
 def _launches_of(K, run, label, need):
     """Drive `run` with every launch count at 0; fail if a kernel of `need`
     was never launched.  Returns (result, counts)."""
@@ -1584,14 +1596,6 @@ def _decode_check(aus, n, label):
           f"{[p.hash_ok for p in pics]}  [{CARD}]", flush=True)
     if len(pics) != n or not all(p.hash_ok is True for p in pics):
         raise AssertionError(f"{label}: decoded picture hash mismatch")
-
-
-def _push_all(enc, frames, first=0):
-    """Push frames[first:] (POC = index) and flush."""
-    aus = []
-    for poc in range(first, len(frames)):
-        aus += enc.push_frame([p.astype("int32") for p in frames[poc]], poc)
-    return aus + enc.flush()
 
 
 # K4-K8's kernels by the names the profiler gives them
@@ -1980,35 +1984,30 @@ def _rc_pictures(enc):
     return rows
 
 
-# rate control's target: a few Mbit/s for 1080p at 30 fps
-RC_BPS, RC_FPS = 4_000_000, 30
-
-
-def rc_phase(frames, dev, ctu):
-    """HM's Low Delay P Main under R-lambda rate control (`ctu`: at CTU
-    level too) over IDR + one GOP of four P pictures through push_frame /
-    flush: the plans price with the model's lambda, not one derived from
-    the QP.  Prints each picture's slice QP, lambda and bits against its
-    target, fps and stage_ms of the P pictures, and holds every kernel of
-    the first P picture's plan to its plain version at that lambda (at
-    picture level also at the ends of the model's lambda range).  Returns
-    the AUs and the launch counts."""
+def rc_phase(recipe, frames, dev):
+    """HM's Low Delay P Main under R-lambda rate control (`recipe`,
+    stream_digest's "RC LDP" or, at CTU level too, "RC CTU LDP") over IDR +
+    one GOP of four P pictures through push_frame / flush: the plans price
+    with the model's lambda, not one derived from the QP.  Prints each
+    picture's slice QP, lambda and bits against its target, fps and
+    stage_ms of the P pictures, holds the stream to PINNED, and holds every
+    kernel of the first P picture's plan to its plain version at that
+    lambda (at picture level also at the ends of the model's lambda range).
+    Returns the AUs and the launch counts."""
     from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
-    H, W = frames[0][0].shape
-    n = len(frames)
-    enc = Encoder(EncoderConfig(W, H, qp=QP, intra_period=0, gop="ld",
-                                target_bps=RC_BPS, frame_rate=RC_FPS,
-                                total_frames=n, rc_ctu=ctu), dev)
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    W, H, n = recipe.width, recipe.height, len(frames)
+    ctu = recipe.cfg.get("rc_ctu", False)
+    enc = S.port_encoder(dev)(S.config(recipe))
     rows = _rc_pictures(enc)
-    label = f"RC{' CTU' if ctu else ''} LDP {W}x{H} {RC_BPS} bps"
+    label = f"{recipe.name} {W}x{H} {recipe.cfg['target_bps']} bps"
     out = {}
 
     def run():
-        aus, out["idr"] = _idr(lambda: enc.push_frame(
-            [p.astype("int32") for p in frames[0]], 0))
+        aus, out["idr"] = _idr(lambda: S.code(recipe, enc, frames, 0, 1))
         rest, out["wall"], out["stage"] = _timed_pictures(
-            enc, lambda: _push_all(enc, frames, 1), f"{label} P pictures", 6)
+            enc, lambda: S.code(recipe, enc, frames, 1),
+            f"{label} P pictures", 6)
         return aus + rest
 
     with _k1_per_plan() as k1, _first_plan() as first:
@@ -2022,6 +2021,7 @@ def rc_phase(frames, dev, ctu):
         raise AssertionError(f"{label}: {len(rows)} rate-control updates "
                              f"for {n} pictures")
     _report(label, n - 1, "P", out["idr"], out["wall"], out["stage"], aus)
+    _pinned(recipe.name, frames, aus)
     _picks_per_picture(counts, n - 1, label)
     _k1_once_per_plan(k1, n - 1, label)
     _replay_held(first, f"{label} first P plan")
@@ -2035,92 +2035,96 @@ def rc_phase(frames, dev, ctu):
     return aus, counts
 
 
-def dqp_phase(frames, dev):
+def _plans_per_picture(counts, n, n_inter, k1, label):
+    """delta_qp_rd runs 4 plans per picture: an AI plan is K1 once and K4
+    twice, a P plan K1 once, K4 once and the list picks once."""
+    n_intra = n - n_inter
+    want = {"plan_dp": 4 * (2 * n_intra + n_inter),
+            "ref_buffers": 4 * n, "inter_pick": 4 * n_inter}
+    got = {k: counts[k] for k in want}
+    print(f"{label}: launches {got} for {n} pictures (4 plans each)",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, not {want}")
+    if n_inter:
+        _k1_once_per_plan(k1, 4 * n_inter, label)
+
+
+def dqp_phase(recipe, frames, dev):
     """delta_qp_rd=1 (each picture trial-coded at QP - 1, QP, QP + 1, then
-    coded at the best) on HM's All Intra Main over two frames and on Low
-    Delay P Main over IDR + one GOP of four P pictures: asserts four plans
-    per picture by K4's and K1's launches; prints fps and stage_ms.
-    Returns {label: launch counts}."""
+    coded at the best; `recipe`, stream_digest's "delta_qp_rd AI", two
+    frames of HM's All Intra Main, or "delta_qp_rd LDP", Low Delay P Main
+    over IDR + one GOP of four P pictures) through push_frame / flush:
+    asserts four plans per picture by K4's and K1's launches, holds the
+    stream to PINNED, prints fps and stage_ms.  Returns the AUs and the
+    launch counts."""
     from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
-    H, W = frames[0][0].shape
-    runs = {}
-    planes = lambda f: [p.astype("int32") for p in f]
-    for gop, n in (("AI", 2), ("LDP", len(frames))):
-        kw = dict(intra_period=1) if gop == "AI" else \
-            dict(intra_period=0, gop="ld")
-        enc = Encoder(EncoderConfig(W, H, qp=QP, delta_qp_rd=1, **kw), dev)
-        label = f"delta_qp_rd {gop} {W}x{H}"
-        need = INTRA if gop == "AI" else \
-            [k for k in K.LAUNCHES if k not in B_ONLY + BAND + ("me_frame",)]
-        t0 = time.perf_counter()
-        with _k1_per_plan() as k1:
-            aus, counts = _launches_of(
-                K, lambda: _push_all(enc, [planes(f) for f in frames[:n]]),
-                label, need)
-        wall = time.perf_counter() - t0
-        n_inter = 0 if gop == "AI" else n - 1
-        n_intra = n - n_inter
-        # 4 plans per picture: an AI plan is K1 once and K4 twice, a P plan
-        # K1 once, K4 once and the list picks once
-        want = {"plan_dp": 4 * (2 * n_intra + n_inter),
-                "ref_buffers": 4 * n, "inter_pick": 4 * n_inter}
-        got = {k: counts[k] for k in want}
-        print(f"{label}: launches {got} for {n} pictures (4 plans each)",
-              flush=True)
-        if got != want:
-            raise AssertionError(f"{label}: launches {got}, not {want}")
-        if n_inter:
-            _k1_once_per_plan(k1, 4 * n_inter, label)
-        print(f"{label}: {n} pictures in {wall:.3f} s = {n / wall:.3f} fps; "
-              f"bytes {[len(a) for a in aus]}  [{CARD}]", flush=True)
-        print(f"{label} stage_ms per picture: " + json.dumps(
-            {k: round(v / n, 3) for k, v in enc.stage_ms.items()})
-            + f"  [{CARD}]", flush=True)
-        _decode_check(aus, n, label)
-        runs[label] = counts
-    return runs
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    W, H, n = recipe.width, recipe.height, len(frames)
+    intra = recipe.cfg["intra_period"] == 1
+    enc = S.port_encoder(dev)(S.config(recipe))
+    label = f"{recipe.name} {W}x{H}"
+    need = INTRA if intra else \
+        [k for k in K.LAUNCHES if k not in B_ONLY + BAND + ("me_frame",)]
+    t0 = time.perf_counter()
+    with _k1_per_plan() as k1:
+        aus, counts = _launches_of(
+            K, lambda: S.code(recipe, enc, frames), label, need)
+    wall = time.perf_counter() - t0
+    _pinned(recipe.name, frames, aus)
+    _plans_per_picture(counts, n, 0 if intra else n - 1, k1, label)
+    print(f"{label}: {n} pictures in {wall:.3f} s = {n / wall:.3f} fps; "
+          f"bytes {[len(a) for a in aus]}  [{CARD}]", flush=True)
+    print(f"{label} stage_ms per picture: " + json.dumps(
+        {k: round(v / n, 3) for k, v in enc.stage_ms.items()})
+        + f"  [{CARD}]", flush=True)
+    _decode_check(aus, n, label)
+    return aus, counts
 
 
-def field_phase(dev, w=1920, h=1088):
+def _plans_per_field(counts, n, intra, k1, label):
+    """One plan per field: K1 once each; LDP's P and B fields also the list
+    picks once and K1 once in each plan."""
+    if counts["ref_buffers"] != 2 * n:
+        raise AssertionError(f"{label}: {counts['ref_buffers']} K1 "
+                             f"launches for {2 * n} fields")
+    if not intra:
+        _picks_per_picture(counts, 2 * n - 1, label)
+        _k1_once_per_plan(k1, 2 * n - 1, label)
+
+
+def field_phase(recipe, frames, dev):
     """Field coding at 1920x1088 (544-row fields: eight 64-row CTU rows and
-    a 32-row one) through encode_stream: HM's All Intra Main over two
-    frames (four fields) and Low Delay P Main over three (six fields: IDR,
-    one GOP of four P, one low-delay B of the flush tail).  Prints fps and
-    stage_ms per field, asserts one plan per field by K1's launches, and
-    checks every field's hash.  Returns {label: launch counts}."""
+    a 32-row one) through encode_stream (`recipe`, stream_digest's "field
+    AI", HM's All Intra Main over two frames (four fields), or "field LDP",
+    Low Delay P Main over three (six fields: IDR, one GOP of four P, one
+    low-delay B of the flush tail)).  Prints fps and stage_ms per field,
+    asserts one plan per field by K1's launches, holds the stream to PINNED
+    and checks every field's hash.  Returns the AUs and the launch
+    counts."""
     from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
-    frames = _frames(w, h, 3)
-    runs = {}
-    for gop, n in (("AI", 2), ("LDP", 3)):
-        kw = dict(intra_period=1) if gop == "AI" else \
-            dict(intra_period=0, gop="ld")
-        enc = Encoder(EncoderConfig(w, h, qp=QP, field_coding=True, **kw),
-                      dev)
-        label = f"field {gop} {w}x{h}"
-        need = INTRA if gop == "AI" else \
-            [k for k in K.LAUNCHES if k not in BAND + ("me_frame",)]
-        t0 = time.perf_counter()
-        with _k1_per_plan() as k1:
-            aus, counts = _launches_of(
-                K, lambda: list(enc.encode_stream(frames[:n])), label, need)
-        wall = time.perf_counter() - t0
-        if counts["ref_buffers"] != 2 * n:
-            raise AssertionError(f"{label}: {counts['ref_buffers']} K1 "
-                                 f"launches for {2 * n} fields")
-        if gop == "LDP":
-            _picks_per_picture(counts, 2 * n - 1, label)
-            _k1_once_per_plan(k1, 2 * n - 1, label)
-        print(f"{label}: {2 * n} fields of {w}x{h // 2} in {wall:.3f} s = "
-              f"{2 * n / wall:.3f} fields/s; bytes {[len(a) for a in aus]}  "
-              f"[{CARD}]", flush=True)
-        print(f"{label} stage_ms per field: " + json.dumps(
-            {k: round(v / (2 * n), 3) for k, v in enc.stage_ms.items()})
-            + f"  [{CARD}]", flush=True)
-        _decode_check(aus, 2 * n, label)
-        runs[label] = counts
-    return runs
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    W, H, n = recipe.width, recipe.height, len(frames)
+    intra = recipe.cfg["intra_period"] == 1
+    enc = S.port_encoder(dev)(S.config(recipe))
+    label = f"{recipe.name} {W}x{H}"
+    need = INTRA if intra else \
+        [k for k in K.LAUNCHES if k not in BAND + ("me_frame",)]
+    t0 = time.perf_counter()
+    with _k1_per_plan() as k1:
+        aus, counts = _launches_of(
+            K, lambda: S.code(recipe, enc, frames), label, need)
+    wall = time.perf_counter() - t0
+    _pinned(recipe.name, frames, aus)
+    _plans_per_field(counts, n, intra, k1, label)
+    print(f"{label}: {2 * n} fields of {W}x{H // 2} in {wall:.3f} s = "
+          f"{2 * n / wall:.3f} fields/s; bytes {[len(a) for a in aus]}  "
+          f"[{CARD}]", flush=True)
+    print(f"{label} stage_ms per field: " + json.dumps(
+        {k: round(v / (2 * n), 3) for k, v in enc.stage_ms.items()})
+        + f"  [{CARD}]", flush=True)
+    _decode_check(aus, 2 * n, label)
+    return aus, counts
 
 
 def small_checks(dev):
@@ -2128,18 +2132,19 @@ def small_checks(dev):
     through the fused plans; LDP under rate control at picture and CTU
     level and RA GOP 8 under it; delta_qp_rd on AI and LDP; field coding
     of AI and LDP at 128x128, whose 64-row fields avoid the reference's
-    fault F2; IPPP and RA through the per-CU search) on the card against
-    the same encodes on the CPU, and both against the JAX package's
-    pinned digests: a card that differs from the CPU and from PINNED
-    points at the kernels, a card and a CPU that differ from PINNED
+    fault F2; IPPP and RA through the per-CU search; AI with the intra plan
+    banded over 2 bands, whose stream shows the zero halo) on the card
+    against the same encodes on the CPU, and both against the JAX
+    package's pinned digests: a card that differs from the CPU and from
+    PINNED points at the kernels, a card and a CPU that differ from PINNED
     together at the machine."""
     from hm16_2_tpu_torch.tools import stream_digest as S
     cpu = torch.device("cpu")
     for name in S.SMALL:
         r = S.RECIPES[name]
         frames = S.make_frames(r)
-        on_card = S.encode(r, S.port_encoder(dev), frames)
-        on_cpu = S.encode(r, S.port_encoder(cpu), frames)
+        on_card = S.encode(r, S.port_encoder(dev), frames, S.port_banded(dev))
+        on_cpu = S.encode(r, S.port_encoder(cpu), frames, S.port_banded(cpu))
         card = S.mismatch(name, S.digest(frames, on_card))
         host = S.mismatch(name, S.digest(frames, on_cpu))
         if on_card != on_cpu or card or host:
@@ -2152,131 +2157,118 @@ def small_checks(dev):
               "package's (PINNED)", flush=True)
 
 
-@contextlib.contextmanager
-def _banded(mesh):
-    """Point the encoder's two plans at the row mesh for the block:
-    intra_rd.plan_frame becomes frame_shard.sharded_plan_frame, and
-    inter_plan.plan_frame takes the mesh (its integer ME banded where
-    plan_shard.shardable allows).  Yields a dict whose "inter" counts the
-    inter plans that took the banded ME."""
-    from hm16_2_tpu_torch.encode import inter_plan, intra_rd
-    from hm16_2_tpu_torch.parallel import plan_shard
-    from hm16_2_tpu_torch.parallel.frame_shard import sharded_plan_frame
-    saved = intra_rd.plan_frame, inter_plan.plan_frame, \
-        plan_shard.sharded_int_me
-    seen = {"inter": 0}
-
-    def int_me(*a):
-        seen["inter"] += 1
-        return saved[2](*a)
-
-    intra_rd.plan_frame = lambda orig, sps, qp, lam, cw, cqps, device=None: \
-        sharded_plan_frame(mesh, orig, sps, qp, lam, cw, cqps)
-    inter_plan.plan_frame = lambda *a, **kw: saved[1](*a, **dict(kw,
-                                                                mesh=mesh))
-    plan_shard.sharded_int_me = int_me
-    try:
-        yield seen
-    finally:
-        intra_rd.plan_frame, inter_plan.plan_frame, \
-            plan_shard.sharded_int_me = saved
-
-
-def banded_phase(frames, small, dev):
-    """The row-banded path on one card, bands on `dev`: two 1080p AI frames
-    through encode_frame with the intra plan banded over 2 bands, and a
-    1024x768 RA GOP 8 (IDR + 8 B) with both plans banded over 2 and over
-    4 bands, each against the same encode unbanded (equal bytes, every
-    picture hash_ok); sharded_analysis_step on a (2, 2) mesh; the port's
-    scaling_bench over 1, 2 and 4 bands on the card (the plumbing cost of
-    banding, not multi-GPU scaling).  Returns the launch counts of the
-    banded run."""
-    from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
-    from hm16_2_tpu_torch.parallel import frame_shard as F
+def _band_tools(dev, w, h):
+    """sharded_analysis_step on a (2, 2) mesh and the port's scaling_bench
+    over 1, 2 and 4 bands of `dev` at w x h (the plumbing cost of banding,
+    not multi-GPU scaling).  Returns scaling_bench's lines."""
     from hm16_2_tpu_torch.parallel import mesh as MM
     from hm16_2_tpu_torch.tools import scaling_bench
-    H, W = frames[0][0].shape
-    h2, w2 = small[0][0].shape
-    ai_cfg = lambda: EncoderConfig(W, H, qp=QP, intra_period=1)
-    ra_cfg = lambda: EncoderConfig(w2, h2, qp=QP, intra_period=32, gop="ra8")
-    planes = [[p.astype("int32") for p in f] for f in frames[:2]]
+    orig, bufs = MM.example_batch(2, 2, 64, 16)
+    MM.sharded_analysis_step(MM.make_mesh([dev] * 4, 2), 16, 8)(orig, bufs,
+                                                                 QP)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = scaling_bench.main([
+            "--size", f"{w}x{h}", "-n", "3", "--Devices",
+            ",".join([f"{dev.type}:{dev.index or 0}"] * 4)])
+    if rc != 0:
+        raise AssertionError(f"scaling_bench exited {rc}")
+    return buf.getvalue().splitlines()
 
-    def ai():
-        enc = Encoder(ai_cfg(), dev)
-        return [enc.encode_frame(planes[i], i) for i in range(2)]
 
-    whole, secs = {}, {}
-    for key, code in (("ai", ai), ("ra", lambda: _push_all(
-            Encoder(ra_cfg(), dev), small))):
-        t0 = time.perf_counter()
-        whole[key] = code()
-        torch.cuda.synchronize()
-        secs[f"whole {key}"] = time.perf_counter() - t0
-    out = {}
-
-    band_k1 = lambda: K.LAUNCHES["ref_buffers_band"]
-
-    def run():
-        t1, k0 = time.perf_counter(), band_k1()
-        with _banded(F.make_row_mesh([dev] * 2)):
-            out["ai"] = ai()
-        secs["ai"], out["k1 ai"] = time.perf_counter() - t1, band_k1() - k0
-        for n in (2, 4):
-            t1, k0 = time.perf_counter(), band_k1()
-            with _banded(F.make_row_mesh([dev] * n)) as seen:
-                out[n] = _push_all(Encoder(ra_cfg(), dev), small)
-            out[f"inter{n}"] = seen["inter"]
-            secs[n], out[f"k1 {n}"] = time.perf_counter() - t1, band_k1() - k0
-        orig, bufs = MM.example_batch(2, 2, 64, 16)
-        out["analysis"] = MM.sharded_analysis_step(
-            MM.make_mesh([dev] * 4, 2), 16, 8)(orig, bufs, QP)
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = scaling_bench.main([
-                "--size", f"{w2}x{h2}", "-n", "3", "--Devices",
-                ",".join([f"{dev.type}:{dev.index or 0}"] * 4)])
-        if rc != 0:
-            raise AssertionError(f"scaling_bench exited {rc}")
-        out["bench"] = buf.getvalue().splitlines()
-
-    _, counts = _launches_of(
-        K, run, f"banded path {W}x{H} AI, {w2}x{h2} RA", BAND + INTRA + (
-            "subpel_planes", "inter_uni", "inter_pick", "inter_bi_refine",
-            "inter_cu_rd_b"))
+def _band_launches(counts, out, ai, ras):
+    """The banded RA plans ran no whole-picture ME and no P kernel, each
+    took the banded ME (8 B plans), and K1's band mode is one launch per
+    band per band height's group of sizes in each I picture (1080p: s = 4
+    alone; 1024x768: every size)."""
+    from hm16_2_tpu_torch.parallel import frame_shard as F
     if counts["inter_me"] or counts["inter_cu_rd"]:
         raise AssertionError("the banded RA plans ran the whole-picture ME "
                              "or a P kernel")
+    for r in ras:
+        if out[f"inter {r.name}"] != 8:
+            raise AssertionError(f"{r.name}: {out[f'inter {r.name}']} "
+                                 "banded inter plans, not 8")
+    k1_want = {f"k1 {r.name}": (r.frames if r is ai else 1) * r.bands * len(
+        F.band_groups(r.height, r.width, r.bands)) for r in (ai, *ras)}
+    got = {k: out[k] for k in k1_want}
+    print(f"K1 band launches (I pictures): {got}", flush=True)
+    if got != k1_want:
+        raise AssertionError(f"K1 band launches not one per band per group: "
+                             f"{got} against {k1_want}")
+
+
+def banded_phase(frames, xga, dev, recipes=None):
+    """The row-banded path on one card, bands on `dev` (stream_digest's
+    "banded AI": two 1080p AI frames through encode_frame with the intra
+    plan banded over 2 bands; "1024x768 banded RA 2" and "4": a 1024x768
+    RA GOP 8, IDR + 8 B, with both plans banded over 2 and 4 bands; and
+    "1024x768 RA", the same unbanded), each stream held to PINNED and
+    every picture hash_ok; each banded stream also equals the same encode
+    unbanded where PINNED says the JAX package's two streams are equal;
+    sharded_analysis_step and scaling_bench (`_band_tools`).  `frames` and
+    `xga` are the 1080p and 1024x768 contents.  Returns the launch counts
+    of the banded run."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    ai, whole_ra, *ras = recipes or [S.RECIPES[n] for n in (
+        "banded AI", "1024x768 RA", "1024x768 banded RA 2",
+        "1024x768 banded RA 4")]
+    w2, h2 = whole_ra.width, whole_ra.height
+    content = {ai.name: frames[:ai.frames], whole_ra.name: xga}
+    content.update({r.name: xga for r in ras})
+
+    def code(r):
+        with S.coding(r, S.port_banded(dev)) as seen:
+            aus = S.code(r, S.port_encoder(dev)(S.config(r)), content[r.name])
+        return aus, seen
+
+    # the unbanded twins, and each banded recipe with its twin and the JAX
+    # package's stream of that twin (for the AI, the first AUs of the "AI"
+    # recipe: ai_phase holds encode_frame to encode_stream)
+    unbanded = {"ai": dataclasses.replace(ai, bands=0), "ra": whole_ra}
+    twins = [(ai, "ai", S.PINNED["AI"]["aus"][:ai.frames])]
+    twins += [(r, "ra", S.PINNED[whole_ra.name]["aus"]) for r in ras]
+    whole, secs = {}, {}
+    for key, r in unbanded.items():
+        t0 = time.perf_counter()
+        whole[key], _ = code(r)
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+    out = {}
+    band_k1 = lambda: K.LAUNCHES["ref_buffers_band"]
+
+    def run():
+        for r in (ai, *ras):
+            t1, k0 = time.perf_counter(), band_k1()
+            out[r.name], seen = code(r)
+            secs[r.name] = time.perf_counter() - t1
+            out[f"k1 {r.name}"] = band_k1() - k0
+            out[f"inter {r.name}"] = seen["inter"]
+        out["bench"] = _band_tools(dev, w2, h2)
+
+    _, counts = _launches_of(
+        K, run, f"banded path {ai.width}x{ai.height} AI, {w2}x{h2} RA",
+        BAND + INTRA + ("subpel_planes", "inter_uni", "inter_pick",
+                        "inter_bi_refine", "inter_cu_rd_b"))
     for line in out["bench"]:
         print(f"scaling_bench {line}  [{CARD}]", flush=True)
-    # K1's band mode: one launch per band per band height's group of sizes
-    # in each I picture (1080p: s = 4 alone; 1024x768: every size)
-    k1_want = {"k1 ai": 2 * 2 * len(F.band_groups(H, W, 2)),
-               "k1 2": 2 * len(F.band_groups(h2, w2, 2)),
-               "k1 4": 4 * len(F.band_groups(h2, w2, 4))}
-    print(f"K1 band launches: {W}x{H} AI, 2 frames over 2 bands "
-          f"{out['k1 ai']}; {w2}x{h2} RA I picture over 2 and 4 bands "
-          f"{out['k1 2']}, {out['k1 4']}", flush=True)
-    if any(out[k] != v for k, v in k1_want.items()):
-        raise AssertionError(f"K1 band launches not one per band per group: "
-                             f"{ {k: out[k] for k in k1_want} } against "
-                             f"{k1_want}")
-    if out["ai"] != whole["ai"]:
-        raise AssertionError("banded AI bytes differ from the unbanded")
-    for n in (2, 4):
-        if out[n] != whole["ra"]:
-            raise AssertionError(f"RA over {n} bands differs from unbanded")
-        if out[f"inter{n}"] != 8:
-            raise AssertionError(f"RA over {n} bands: {out[f'inter{n}']} "
-                                 "banded inter plans, not 8")
-    print(f"banded {W}x{H} AI (2 bands) bytes {[len(a) for a in out['ai']]} "
-          f"equal unbanded, {secs['ai']:.3f} s (unbanded "
-          f"{secs['whole ai']:.3f} s); {w2}x{h2} RA GOP8 over 2 and 4 bands "
-          f"equal unbanded, 8 banded B plans each, {secs[2]:.3f} / "
-          f"{secs[4]:.3f} s (unbanded {secs['whole ra']:.3f} s)  [{CARD}]",
-          flush=True)
-    _decode_check(out["ai"], 2, f"banded AI {W}x{H}")
-    _decode_check(out[2], 9, f"banded RA {w2}x{h2}")
+    _band_launches(counts, out, ai, ras)
+    _pinned(whole_ra.name, xga, whole["ra"])
+    for r, twin, jax_twin in twins:
+        _pinned(r.name, content[r.name], out[r.name])
+        same = S.PINNED[r.name]["aus"] == jax_twin
+        if same and out[r.name] != whole[twin]:
+            raise AssertionError(f"{r.name}: bytes differ from the unbanded "
+                                 "encode, as the JAX package's do not")
+        print(f"{r.name} ({r.bands} bands) bytes "
+              f"{[len(a) for a in out[r.name]]} "
+              f"{'equal' if same else 'differ from'} the unbanded, as in "
+              f"the JAX package; {secs[r.name]:.3f} s (unbanded "
+              f"{secs[twin]:.3f} s)  [{CARD}]", flush=True)
+    _decode_check(out[ai.name], ai.frames,
+                  f"banded AI {ai.width}x{ai.height}")
+    _decode_check(out[ras[0].name], ras[0].frames, f"banded RA {w2}x{h2}")
     return counts
 
 
@@ -2286,11 +2278,12 @@ def cli_phase():
     counts."""
     from hm16_2_tpu_torch import kernels as K
     from hm16_2_tpu_torch.tools import encode as cli
+    from hm16_2_tpu_torch.tools import stream_digest as S
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from make_fixtures import write_yuv
     with tempfile.TemporaryDirectory() as d:
         yuv, out = os.path.join(d, "in.yuv"), os.path.join(d, "out.bin")
-        write_yuv(yuv, _frames(136, 72, 5))
+        write_yuv(yuv, S.make_frames(S.RECIPES["136x72 LDP"]))
         args = ["-c", os.path.join(ROOT, "cfg", "encoder_lowdelay_P_main.cfg"),
                 "-i", yuv, "-b", out, "-wdt", "136", "-hgt", "72", "-f", "5"]
         rc, counts = _launches_of(K, lambda: cli.main(args), "CLI 136x72",
@@ -2347,31 +2340,33 @@ def main():
           flush=True)
 
     dev = torch.device("cuda")
-    stats = check_kernels(frames[0], dev)
-    check_inter_kernels(frames[1:6], dev, stats=stats)
-    check_b_kernels(frames[:5], dev, stats=stats)
-    check_me_frame(frames[1:6], dev, stats=stats)
-    check_me_frame(frames[4:6], dev, stats=stats, nref=1)
-    # the row-banded kernels: K1's band mode at 1080p (s = 4, the one size
-    # the banding rule splits there), K2's analysis mode on every 1080p
-    # block, K1's (every size, one group) and K5's band modes at 1024x768
-    # (HM class F) over 2 and 4 bands
-    check_band_kernels(frames[:1], dev, stats=stats, me=False)
-    xga = _frames(1024, 768, 9)
-    check_band_kernels(xga[:5], dev, stats=stats, analysis=())
-    # K5 and K7 on the inputs their invariants rest on, and a flat 1080p
-    check_me_edges(dev)
-    # K6 and K8 likewise
-    check_k6_k8_edges(dev)
-    # K4 and K7's list picks likewise
-    check_k4_picks_edges(dev)
-    report_k6_k8(stats, torch.from_numpy(np.stack(
-        [frames[k][0] for k in (4, 3, 2, 1)]).astype("int32")).to(dev))
-    # K2 and K3 likewise, and their time by case
-    check_intra_edges(dev)
-    # K1 likewise
-    check_k1_edges(dev)
-    report_k2_k3(stats)
+    with _phase("kernels against plain"):
+        stats = check_kernels(frames[0], dev)
+        check_inter_kernels(frames[1:6], dev, stats=stats)
+        check_b_kernels(frames[:5], dev, stats=stats)
+        check_me_frame(frames[1:6], dev, stats=stats)
+        check_me_frame(frames[4:6], dev, stats=stats, nref=1)
+        # the row-banded kernels: K1's band mode at 1080p (s = 4, the one
+        # size the banding rule splits there), K2's analysis mode on every
+        # 1080p block, K1's (every size, one group) and K5's band modes at
+        # 1024x768 (HM class F) over 2 and 4 bands
+        check_band_kernels(frames[:1], dev, stats=stats, me=False)
+        xga = S.make_frames(S.RECIPES["1024x768 RA"])
+        check_band_kernels(xga[:5], dev, stats=stats, analysis=())
+        # K5 and K7 on the inputs their invariants rest on, and a flat
+        # 1080p
+        check_me_edges(dev)
+        # K6 and K8 likewise
+        check_k6_k8_edges(dev)
+        # K4 and K7's list picks likewise
+        check_k4_picks_edges(dev)
+        report_k6_k8(stats, torch.from_numpy(np.stack(
+            [frames[k][0] for k in (4, 3, 2, 1)]).astype("int32")).to(dev))
+        # K2 and K3 likewise, and their time by case
+        check_intra_edges(dev)
+        # K1 likewise
+        check_k1_edges(dev)
+        report_k2_k3(stats)
 
     # all-intra: warm-up frame, then a timed 3-frame encode_stream
     from hm16_2_tpu_torch.encode.intra_rd import fetch_plan
@@ -2385,54 +2380,61 @@ def main():
           f"{(time.perf_counter() - t0) / 5 * 1e3:.3f} ms per frame  "
           f"[{CARD}]", flush=True)
     ai = S.RECIPES["AI"]
-    aus, ai_counts = ai_phase(ai, frames[:ai.frames], dev)
-    print(f"AI launches per frame: plan_dp {ai_counts['plan_dp'] / ai.frames}"
-          f", ref_buffers {ai_counts['ref_buffers'] / ai.frames}", flush=True)
-    if (ai_counts["plan_dp"], ai_counts["ref_buffers"]) != (2 * ai.frames,
-                                                            ai.frames):
-        raise AssertionError("AI: K4 not 2 launches per frame or K1 not 1")
-    _pinned("AI", frames[:ai.frames], aus)
+    with _phase("AI"):
+        aus, ai_counts = ai_phase(ai, frames[:ai.frames], dev)
+        print(f"AI launches per frame: plan_dp "
+              f"{ai_counts['plan_dp'] / ai.frames}, ref_buffers "
+              f"{ai_counts['ref_buffers'] / ai.frames}", flush=True)
+        if (ai_counts["plan_dp"], ai_counts["ref_buffers"]) != (
+                2 * ai.frames, ai.frames):
+            raise AssertionError("AI: K4 not 2 launches per frame or K1 "
+                                 "not 1")
+        _pinned("AI", frames[:ai.frames], aus)
 
     # low-delay P: IDR + one GOP of four P pictures
     ldp = S.RECIPES["LDP"]
-    ldp_aus, ldp_counts = ldp_phase(ldp, frames[:ldp.frames], dev)
-    _decode_check(ldp_aus, ldp.frames, "LDP")
-    _pinned("LDP", frames[:ldp.frames], ldp_aus)
+    with _phase("LDP"):
+        ldp_aus, ldp_counts = ldp_phase(ldp, frames[:ldp.frames], dev)
+        _decode_check(ldp_aus, ldp.frames, "LDP")
+        _pinned("LDP", frames[:ldp.frames], ldp_aus)
 
     # random access: IDR + one GOP of eight B pictures
     ra = S.RECIPES["RA"]
-    ra_aus, ra_counts = ra_phase(ra, frames[:ra.frames], dev)
-    _decode_check(ra_aus, ra.frames, "RA")
-    _pinned("RA", frames[:ra.frames], ra_aus)
+    with _phase("RA"):
+        ra_aus, ra_counts = ra_phase(ra, frames[:ra.frames], dev)
+        _decode_check(ra_aus, ra.frames, "RA")
+        _pinned("RA", frames[:ra.frames], ra_aus)
 
     # the per-CU inter search: IDR + one P picture without a fused plan (its
     # host search takes about a minute per 1080p P picture)
     fb = S.RECIPES["per-CU search"]
-    fb_aus, fb_counts = fallback_phase(fb, frames[:fb.frames], dev)
-    _decode_check(fb_aus, fb.frames, "per-CU search")
-    _pinned("per-CU search", frames[:fb.frames], fb_aus)
+    with _phase("per-CU search"):
+        fb_aus, fb_counts = fallback_phase(fb, frames[:fb.frames], dev)
+        _decode_check(fb_aus, fb.frames, "per-CU search")
+        _pinned("per-CU search", frames[:fb.frames], fb_aus)
 
     # Main10: AI and RA at 1080p on 10-bit content
-    t0 = time.perf_counter()
-    main10 = main10_phase(dev)
-    print(f"Main10 phase: {time.perf_counter() - t0:.1f} s  [{CARD}]",
-          flush=True)
+    with _phase("Main10"):
+        main10 = main10_phase(dev)
 
     # rate control, delta_qp_rd and field coding at 1080p and 1920x1088
-    t0 = time.perf_counter()
-    new = {f"RC{' CTU' * ctu}": rc_phase(frames[:5], dev, ctu)[1]
-           for ctu in (False, True)}
-    new.update(dqp_phase(frames[:5], dev))
-    new.update(field_phase(dev))
-    print(f"rate control, delta_qp_rd and field phases: "
-          f"{time.perf_counter() - t0:.1f} s  [{CARD}]", flush=True)
+    fields = S.make_frames(S.RECIPES["field LDP"])
+    new = {}
+    for phase, content, names in (
+            (rc_phase, frames, ("RC LDP", "RC CTU LDP")),
+            (dqp_phase, frames, ("delta_qp_rd AI", "delta_qp_rd LDP")),
+            (field_phase, fields, ("field AI", "field LDP"))):
+        for recipe in map(S.RECIPES.get, names):
+            with _phase(recipe.name):
+                new[recipe.name] = phase(recipe, content[:recipe.frames],
+                                         dev)[1]
 
-    t0 = time.perf_counter()
-    small_checks(dev)
-    print(f"small card-against-CPU checks: {time.perf_counter() - t0:.1f} s"
-          f"  [{CARD}]", flush=True)
-    cli_counts = cli_phase()
-    band_counts = banded_phase(frames, xga, dev)
+    with _phase("small card-against-CPU checks"):
+        small_checks(dev)
+    with _phase("CLI"):
+        cli_counts = cli_phase()
+    with _phase("banded"):
+        band_counts = banded_phase(frames, xga, dev)
 
     unbanded = {"AI": ai_counts, "LDP": ldp_counts, "RA": ra_counts,
                 "per-CU search": fb_counts, "CLI": cli_counts, **main10,
@@ -2449,6 +2451,9 @@ def main():
         raise AssertionError(f"modules of jax or the JAX package loaded: "
                              f"{loaded[:5]}")
     print("neither jax nor the JAX package imported", flush=True)
+    print("seconds by phase: " + json.dumps(
+        {k: round(v, 1) for k, v in PHASE_S.items()}) + f"  [{CARD}]",
+        flush=True)
     print(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s  [{CARD}]",
           flush=True)
 

@@ -3,24 +3,31 @@
 `RECIPES` defines every checked stream once: its content
 (`make_yuv(width, height, frames, seed=, bits=, chroma=)`), its
 `EncoderConfig` keyword arguments, how it is driven (`encode_stream`,
-`push_frame` / `flush`, or `encode_frame`) and the environment switches
-it runs under.  The 1080p recipes are the streams that chip_smoke.py
-encodes on the card (AI, LDP, RA, the per-CU search, and Main10 AI and
-RA, whose configurations are what `tools/encode.py` builds from
+`push_frame` / `flush`, or `encode_frame`), the environment switches
+it runs under and the number of row bands its plans are banded over
+(`bands`; `encode` enters the caller's `banded(bands)` around the
+coding).  `LARGE` are the streams that chip_smoke.py's timed phases
+encode on the card: 1080p AI, LDP, RA, the per-CU search, Main10 AI and
+RA (whose configurations are what `tools/encode.py` builds from
 `cfg/encoder_intra_main10.cfg` and `cfg/encoder_randomaccess_main10.cfg`
-at `-wdt 1920 -hgt 1080 -q 32`); the small ones are those of
-chip_smoke.small_checks.
+at `-wdt 1920 -hgt 1080 -q 32`), rate control at picture and CTU level,
+`delta_qp_rd`, field coding at 1920x1088, and the row-banded encoder
+(1080p AI over 2 bands; 1024x768 RA unbanded and over 2 and 4 bands).
+`SMALL` are those of chip_smoke.small_checks, among them a 136x72 AI
+banded over 2 bands, whose stream shows the zero halo of the banded intra
+RD (it differs from the unbanded stream of the same content).
 
 `PINNED` holds, for each recipe, the SHA-256 of its input planes (int32,
 little-endian, frame by frame in plane order), the SHA-256 and length of
 each access unit the JAX package writes, and the SHA-256 of the whole
 stream.  `tests/test_torch_stream_digest.py` reproduces every value from
-the JAX package on the CPU (`-m slow` for all of them).
+the JAX package on the CPU (`-m slow` for all of them; the banded recipes
+through the JAX twin of `banded` there).
 
     python3 hm16_2_tpu_torch/tools/stream_digest.py [--root DIR]
     python3 hm16_2_tpu_torch/tools/stream_digest.py --check [NAME ...]
 
-Without --check: encodes the 1080p recipes on the card with the
+Without --check: encodes the LARGE recipes on the card with the
 `hm16_2_tpu_torch` of the checkout DIR (default: the one holding this
 file), so that two trees unpacked side by side are held to the same bytes
 in one call, and prints the card's name and power limit, a line per
@@ -83,6 +90,7 @@ class Recipe:
     bits: int = 8
     chroma: int = 420
     env: tuple = ()             # (name, value) pairs set while coding
+    bands: int = 0              # row bands of the plans; 0: unbanded
 
 
 NO_PLAN = (("HM16_NO_INTER_PLAN", "1"),)
@@ -90,9 +98,12 @@ AI = dict(qp=QP, intra_period=1)
 LD = dict(qp=QP, intra_period=0, gop="ld")
 RA = dict(qp=QP, intra_period=32, gop="ra8")
 RC = dict(target_bps=200000)
+# rate control's target at 1080p: a few Mbit/s at 30 fps
+RC_1080 = dict(LD, target_bps=4_000_000, frame_rate=30, total_frames=5)
+XGA = 1024, 768
 
 RECIPES = {r.name: r for r in (
-    # 1080p: chip_smoke.py's timed phases
+    # large: chip_smoke.py's timed phases
     Recipe("AI", W, H, 3, AI, "encode_stream"),
     Recipe("LDP", W, H, 5, LD, "push_frame"),
     Recipe("RA", W, H, 9, RA, "push_frame"),
@@ -104,6 +115,22 @@ RECIPES = {r.name: r for r in (
     Recipe("RA-Main10", W, H, 9, dict(
         qp=QP, bit_depth=10, intra_period=32, gop="ra8", sbd=False,
         total_frames=9, gop_table=RA_CFG_GOP), "push_frame", bits=10),
+    Recipe("RC LDP", W, H, 5, RC_1080, "push_frame"),
+    Recipe("RC CTU LDP", W, H, 5, dict(RC_1080, rc_ctu=True), "push_frame"),
+    Recipe("delta_qp_rd AI", W, H, 2, dict(AI, delta_qp_rd=1), "push_frame"),
+    Recipe("delta_qp_rd LDP", W, H, 5, dict(LD, delta_qp_rd=1),
+           "push_frame"),
+    # 544-row fields: eight 64-row CTU rows and a 32-row one (1080p's
+    # 540-row fields hit the reference's fault F2)
+    Recipe("field AI", W, 1088, 2, dict(AI, field_coding=True),
+           "encode_stream"),
+    Recipe("field LDP", W, 1088, 3, dict(LD, field_coding=True),
+           "encode_stream"),
+    # the row-banded encoder
+    Recipe("banded AI", W, H, 2, AI, "encode_frame", bands=2),
+    Recipe("1024x768 RA", *XGA, 9, RA, "push_frame"),
+    Recipe("1024x768 banded RA 2", *XGA, 9, RA, "push_frame", bands=2),
+    Recipe("1024x768 banded RA 4", *XGA, 9, RA, "push_frame", bands=4),
     # small: chip_smoke.small_checks, card against CPU
     Recipe("136x72 AI", 136, 72, 3, AI, "encode_stream"),
     Recipe("136x72 LDP", 136, 72, 5, LD, "push_frame"),
@@ -127,9 +154,12 @@ RECIPES = {r.name: r for r in (
         qp=QP, intra_period=8, rrsp=True, sbd=True), "encode_frame",
         env=NO_PLAN),
     Recipe("136x72 per-CU RA", 136, 72, 9, RA, "push_frame", env=NO_PLAN),
+    # s = 32 rows stop short of the picture over 2 bands: the zero halo
+    Recipe("136x72 banded AI", 136, 72, 2, AI, "encode_frame", seed=2,
+           bands=2),
 )}
-LARGE = [n for n, r in RECIPES.items() if (r.width, r.height) == (W, H)]
-SMALL = [n for n in RECIPES if n not in LARGE]
+SMALL = [n for n, r in RECIPES.items() if r.width <= 264]
+LARGE = [n for n in RECIPES if n not in SMALL]
 
 
 def make_frames(recipe, n=None):
@@ -152,6 +182,43 @@ def port_encoder(dev):
     """make_encoder for `encode`: the port's Encoder on `dev`."""
     from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
     return lambda kw: Encoder(EncoderConfig(**kw), dev)
+
+
+@contextlib.contextmanager
+def banded(mesh):
+    """Point the port's two plans at the row mesh for the block:
+    intra_rd.plan_frame becomes frame_shard.sharded_plan_frame, and
+    inter_plan.plan_frame takes the mesh (its integer ME banded where
+    plan_shard.shardable allows).  Yields a dict whose "inter" counts the
+    inter plans that took the banded ME."""
+    from hm16_2_tpu_torch.encode import inter_plan, intra_rd
+    from hm16_2_tpu_torch.parallel import plan_shard
+    from hm16_2_tpu_torch.parallel.frame_shard import sharded_plan_frame
+    saved = intra_rd.plan_frame, inter_plan.plan_frame, \
+        plan_shard.sharded_int_me
+    seen = {"inter": 0}
+
+    def int_me(*a):
+        seen["inter"] += 1
+        return saved[2](*a)
+
+    intra_rd.plan_frame = lambda orig, sps, qp, lam, cw, cqps, device=None: \
+        sharded_plan_frame(mesh, orig, sps, qp, lam, cw, cqps)
+    inter_plan.plan_frame = lambda *a, **kw: saved[1](*a, **dict(kw,
+                                                                mesh=mesh))
+    plan_shard.sharded_int_me = int_me
+    try:
+        yield seen
+    finally:
+        intra_rd.plan_frame, inter_plan.plan_frame, \
+            plan_shard.sharded_int_me = saved
+
+
+def port_banded(dev):
+    """banded for `encode`: the port's plans over `n` bands, each on
+    `dev`."""
+    from hm16_2_tpu_torch.parallel.frame_shard import make_row_mesh
+    return lambda n: banded(make_row_mesh([dev] * n))
 
 
 @contextlib.contextmanager
@@ -191,10 +258,23 @@ def code(recipe, enc, frames, start=0, stop=None):
     return aus + (enc.flush() if stop == len(frames) else [])
 
 
-def encode(recipe, make_encoder, frames):
+@contextlib.contextmanager
+def coding(recipe, banded=None):
+    """The recipe's environment switches and, for a banded recipe, its
+    `banded(recipe.bands)` block.  Yields what that block yields (None
+    when unbanded)."""
+    if recipe.bands and banded is None:
+        raise ValueError(f"{recipe.name} is banded: pass `banded`")
+    with environ(recipe), (banded(recipe.bands) if recipe.bands
+                           else contextlib.nullcontext()) as seen:
+        yield seen
+
+
+def encode(recipe, make_encoder, frames, banded=None):
     """The access units of `recipe` coded on `frames` by the encoder that
-    `make_encoder(config(recipe))` returns."""
-    with environ(recipe):
+    `make_encoder(config(recipe))` returns; a banded recipe codes inside
+    `banded(recipe.bands)`."""
+    with coding(recipe, banded):
         return code(recipe, make_encoder(config(recipe)), frames)
 
 
@@ -263,7 +343,7 @@ def main(argv=None):
         r = RECIPES[name]
         frames = make_frames(r)
         stage = None
-        with environ(r):
+        with coding(r, port_banded(dev)):
             enc = port_encoder(dev)(config(r))
             if r.drive == "push_frame":
                 aus = code(r, enc, frames, 0, 1)
@@ -488,6 +568,119 @@ PINNED = {
             ["5c9cba7e2d8f6ac9644b79f9ff72b7a8293e6ec9845e19d70de66f9f9314c2a9", 197],
             ["b69c04c4328e8a22a70c23e0a2c3d30ddf5f51ed12f87bed6417cfc500fa4ff9", 131],
             ["50be7614eef654d9f06a2b26205df0f4f1f59d277541b862806829f43c2c7ef1", 118],
+        ]},
+    "RC LDP": {
+        "input": "dd68e9e7eb344c1aac840a37ce9956be2ba7a8b7f883a2078f91536f99381cd6",
+        "stream": "438cd6b0d9748eb0f13e4a6dbc2c172d8e584786e8c1e62feac3034b1f846cde",
+        "aus": [
+            ["2fc6479b727269252a4e38f6a3866a42d91a922a88cf71baef294f724834148e", 73508],
+            ["bada95d862b4102e204537ea75861a1b05c48228b6414ca74d4421d51b21a07b", 1517],
+            ["32c1fcf22d0e86beeeace588ff39dd3380e85b2c59d9eba700cb024e97bb09de", 3112],
+            ["54fc314932d19d89a2598ddc829859f6dd21807e7a671e299b27e640386c1401", 5199],
+            ["565faa6b73bd038be22d314aba254e8211c2cd2b75c38044376c8c6593f65faa", 3412],
+        ]},
+    "RC CTU LDP": {
+        "input": "dd68e9e7eb344c1aac840a37ce9956be2ba7a8b7f883a2078f91536f99381cd6",
+        "stream": "349bd216fd3f2aec6c22f5feaad280fd988907f5d16ea9de4944d408f20530c1",
+        "aus": [
+            ["7b0903fb4c103075f019a80bdeece98bbc79a79d9b7bdf1186785a86489a4432", 73556],
+            ["38dae80c2f45606d5c545d9060bffbe212edcdb73ee0c61c069684a3d8afc9cd", 2284],
+            ["cf12ae5a564d187c8fd21ebabaab74b57025fec06258f14788de7ce25db42be0", 5999],
+            ["70b1a1249f47bb19e9ae876dc14ddec9377eb423d1ced33306257a9df3b27ff1", 11021],
+            ["37703813d4ff5f7f784a07dfa8e08dbc88a854fbd12c03b9286609f9c47084a2", 4256],
+        ]},
+    "delta_qp_rd AI": {
+        "input": "fe587ba481af8982ff42d6ec80b93f30aabb0c5b73ca36543f37594cb2b394bd",
+        "stream": "70b34839b26874e4fcd711b609adfbb2e1174540e5d5ad8fa6f6848a90e336f5",
+        "aus": [
+            ["5ff6ee8b7379600f93f9f09c1e268ed548660325770618aabc9bd5e238c13bc2", 34527],
+            ["0923928db36f470b1040b53ccea0d6b4eefb1e7f0332304182417286e47acaba", 35156],
+        ]},
+    "delta_qp_rd LDP": {
+        "input": "dd68e9e7eb344c1aac840a37ce9956be2ba7a8b7f883a2078f91536f99381cd6",
+        "stream": "8af5c1d2ff2545f8ab529e125a68a63135195a0e1760eee8dd9185c7fedae797",
+        "aus": [
+            ["43c9bdaa3697728b34206f79704f115f23a9c05c27fed5c612661f6006dd8987", 34528],
+            ["34918f15f16d7869ccdd882c800516bc7895eb9b137f03d92d9886d7ebb67b31", 1392],
+            ["1bb1700d32ec0d816132e0d99a1b3ad26c5171f5b201e0a15e66c70003a40dda", 1503],
+            ["9eb1bd8f09925ac5c0e2de5a84f0c094f3b96a0776e360a74e06de889e5980b8", 1446],
+            ["0c5abbb041e1955114502d52faffcac5b3aa046610d7840ef7cd931ded3c5103", 3316],
+        ]},
+    "field AI": {
+        "input": "5306be6ac0ea16c1d3172e58bed87f02d71d10fc78ba0cb657edbb0c4d573bd6",
+        "stream": "ba214b4362c6b5d30f4e8177992dc1e92107dcb222afe77d866a301467dd6e5c",
+        "aus": [
+            ["fe8fb4cca37dce2a92a91491e09d9f25e31c351e5c38b667e79e02f8145ab06d", 21619],
+            ["fd438ae7365b2cfce145b003af14aa25a16d9eddb143e01fb2565386e72ce184", 21981],
+            ["dd9c97df060d21cd815d891cc1711ef3105d7a41ca9922c61d96a6bd01443bf7", 22313],
+            ["fedbf76d002305e13339af5a13aa89e66e91dd85a0ef61f873c5e8389617466f", 21835],
+        ]},
+    "field LDP": {
+        "input": "14528b5cc4f296c067fd2fd749619bb1cbb385d8b449d8f8592cf888bcb653ea",
+        "stream": "02eea4caffcc8a38571961c164e562b288aa449f6faff241a1af9e6afa811487",
+        "aus": [
+            ["a774db1e5d664b13df864a0e8f7ffc5a843c2954a34eaa852a04950b24e3c7d6", 21620],
+            ["9fde51306266c31656e82b5621f70de6b3b4cb0803ded682e3f14a1445f5bd84", 986],
+            ["7bbfcabc5652b1c56f2798dea61778434bb7999074e08e840e1c9e940c9b2e9c", 1406],
+            ["e4ab42c14fb8205359563977e04c12ae5c8aa965af160369635b77745c6b9925", 847],
+            ["16d72b2341a61e6f502252a2bd827d743f3ac5bb67a77374eb62618ef02723f7", 2456],
+            ["2ddc39beb73c82edf1d335f683a5f8adb4a3c2e3342fd17a87664ee8570bf96a", 793],
+        ]},
+    "banded AI": {
+        "input": "fe587ba481af8982ff42d6ec80b93f30aabb0c5b73ca36543f37594cb2b394bd",
+        "stream": "70b34839b26874e4fcd711b609adfbb2e1174540e5d5ad8fa6f6848a90e336f5",
+        "aus": [
+            ["5ff6ee8b7379600f93f9f09c1e268ed548660325770618aabc9bd5e238c13bc2", 34527],
+            ["0923928db36f470b1040b53ccea0d6b4eefb1e7f0332304182417286e47acaba", 35156],
+        ]},
+    "1024x768 RA": {
+        "input": "367122ca19a3b6dad443fb327aa641418f915cbca3113bb77554db56fac05a14",
+        "stream": "2d6ab2c6cdf685582fae375b303aef4db4c2e43d600155cf7f3ad7e6d8c26b38",
+        "aus": [
+            ["a4fce1d67d9858c445a44fe6a5d817335aab692b266677b07d8445b5e53f2b6d", 14689],
+            ["7583d6f609100f110f81f605c7f1dae22fdc539b8ce5f39a7098b5bcec854fa3", 2477],
+            ["a62e6aaf71163e0bd84293f42738b17738d394c009ee2ae70f34e96c606fd414", 1737],
+            ["434df3983d339a9a1ccc6052f27163bb58c7f591f749d7af55ee51fec58192cb", 886],
+            ["0d1bda9a3193c070d1428cb3a09c7103d54f8771ec5708e24c0017ff2e4d9398", 377],
+            ["d2d6ca4c2764c1691431481de526b1a628bc85ab7deeea5d23ae47e4b01ef348", 328],
+            ["c6692e6536c8250c0d27f789b0bd771074c2720019794de8a8713abbc53456ac", 627],
+            ["0323ee9d61786e3d813310967521483f5941b1d2c1bec7239ae5d2b825bb3170", 285],
+            ["25db06ae9588b9f5ed76d7460a394f9a2e7f06f85a77506af0ffc6ecf3134ea7", 422],
+        ]},
+    "1024x768 banded RA 2": {
+        "input": "367122ca19a3b6dad443fb327aa641418f915cbca3113bb77554db56fac05a14",
+        "stream": "2d6ab2c6cdf685582fae375b303aef4db4c2e43d600155cf7f3ad7e6d8c26b38",
+        "aus": [
+            ["a4fce1d67d9858c445a44fe6a5d817335aab692b266677b07d8445b5e53f2b6d", 14689],
+            ["7583d6f609100f110f81f605c7f1dae22fdc539b8ce5f39a7098b5bcec854fa3", 2477],
+            ["a62e6aaf71163e0bd84293f42738b17738d394c009ee2ae70f34e96c606fd414", 1737],
+            ["434df3983d339a9a1ccc6052f27163bb58c7f591f749d7af55ee51fec58192cb", 886],
+            ["0d1bda9a3193c070d1428cb3a09c7103d54f8771ec5708e24c0017ff2e4d9398", 377],
+            ["d2d6ca4c2764c1691431481de526b1a628bc85ab7deeea5d23ae47e4b01ef348", 328],
+            ["c6692e6536c8250c0d27f789b0bd771074c2720019794de8a8713abbc53456ac", 627],
+            ["0323ee9d61786e3d813310967521483f5941b1d2c1bec7239ae5d2b825bb3170", 285],
+            ["25db06ae9588b9f5ed76d7460a394f9a2e7f06f85a77506af0ffc6ecf3134ea7", 422],
+        ]},
+    "1024x768 banded RA 4": {
+        "input": "367122ca19a3b6dad443fb327aa641418f915cbca3113bb77554db56fac05a14",
+        "stream": "2d6ab2c6cdf685582fae375b303aef4db4c2e43d600155cf7f3ad7e6d8c26b38",
+        "aus": [
+            ["a4fce1d67d9858c445a44fe6a5d817335aab692b266677b07d8445b5e53f2b6d", 14689],
+            ["7583d6f609100f110f81f605c7f1dae22fdc539b8ce5f39a7098b5bcec854fa3", 2477],
+            ["a62e6aaf71163e0bd84293f42738b17738d394c009ee2ae70f34e96c606fd414", 1737],
+            ["434df3983d339a9a1ccc6052f27163bb58c7f591f749d7af55ee51fec58192cb", 886],
+            ["0d1bda9a3193c070d1428cb3a09c7103d54f8771ec5708e24c0017ff2e4d9398", 377],
+            ["d2d6ca4c2764c1691431481de526b1a628bc85ab7deeea5d23ae47e4b01ef348", 328],
+            ["c6692e6536c8250c0d27f789b0bd771074c2720019794de8a8713abbc53456ac", 627],
+            ["0323ee9d61786e3d813310967521483f5941b1d2c1bec7239ae5d2b825bb3170", 285],
+            ["25db06ae9588b9f5ed76d7460a394f9a2e7f06f85a77506af0ffc6ecf3134ea7", 422],
+        ]},
+    "136x72 banded AI": {
+        "input": "567647e99c3d109ce05a8deb2437c1c5dcb414ec4cb217f1511a4c85bb6dbf65",
+        "stream": "c60acd7d09114ce8360f8572d2a125f15804c5627a727d50905b8670b4e3dbc2",
+        "aus": [
+            ["09327c4bd6762892ca7bbddaa357200e48f8cabeb6810a0788c9d9c2fd41a8c3", 644],
+            ["3771c7a7dbdd9da1217b0dc2dc64a739efb7ac98c7970bf47c1dd004d4cad041", 601],
         ]},
 }
 

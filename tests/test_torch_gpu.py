@@ -265,12 +265,16 @@ def test_banded_ra_on_card_equals_cpu(cuda):
     from hm16_2_tpu_torch import kernels
     from hm16_2_tpu_torch.encode.top import Encoder, EncoderConfig
     from hm16_2_tpu_torch.parallel.frame_shard import make_row_mesh
+    from hm16_2_tpu_torch.tools.stream_digest import banded
     frames = make_yuv(256, 256, 9, seed=15)
     cfg = lambda: EncoderConfig(256, 256, qp=32, intra_period=32, gop="ra8")
 
     def run(dev, n):
-        with chip_smoke._banded(make_row_mesh([dev] * n)) as seen:
-            out = chip_smoke._push_all(Encoder(cfg(), dev), frames)
+        with banded(make_row_mesh([dev] * n)) as seen:
+            enc = Encoder(cfg(), dev)
+            out = [au for poc, f in enumerate(frames) for au in
+                   enc.push_frame([p.astype("int32") for p in f], poc)]
+            out += enc.flush()
         assert seen["inter"] == 8
         return out
 

@@ -8,13 +8,23 @@ every entry from the JAX package on the CPU:
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_stream_digest.py -m slow
 
+The banded recipes run the JAX package through `jax_banded`, the twin of
+the port's `stream_digest.banded`, over the 8 virtual CPU devices of
+tests/conftest.py.  Each case takes from seconds (the 136x72 recipes) to
+tens of minutes (1080p delta_qp_rd LDP, whose 5 pictures run 20 plans).
+
 Tier 1 reproduces the three 136x72 entries that share one compiled JAX
-program per geometry, the 1080p input planes, and two small streams of
-the port's CPU path; the other small recipes are held to the JAX package
-by the same-bytes tests of test_torch_encode*.py as well.  That
+program per geometry, the input planes of every large recipe, three small
+streams of the port's CPU path (among them the banded 136x72 AI, over two
+CPU bands) and that the banded 136x72 AI differs from its unbanded
+stream; the other small recipes are held to the JAX package by the
+same-bytes tests of test_torch_encode*.py as well.  Only `-m slow`
+reproduces the large recipes and the other small ones.  That
 chip_smoke.py codes the recipes is test_torch_chip_smoke_recipes.py.
 """
 
+import contextlib
+import dataclasses
 import os
 
 import pytest
@@ -35,17 +45,41 @@ def jax_encoder(kw):
     return RT.Encoder(RT.EncoderConfig(**kw))
 
 
-def _held(name, make_encoder):
+@contextlib.contextmanager
+def jax_banded(n):
+    """The twin of stream_digest.banded in the JAX package: its intra plan
+    becomes frame_shard.sharded_plan_frame and its inter plan takes the
+    mesh, over `n` of the virtual CPU devices."""
+    import jax
+    from hm16_2_tpu.encode import inter_plan as RP
+    from hm16_2_tpu.encode import intra_rd as RI
+    from hm16_2_tpu.parallel import frame_shard as RF
+    mesh = RF.make_row_mesh(jax.devices("cpu")[:n])
+    saved = RI.plan_frame, RP.plan_frame
+    RI.plan_frame = lambda orig, sps, qp, lam, cw, cqps, device=None: \
+        RF.sharded_plan_frame(mesh, orig, sps, qp, lam, cw, cqps)
+    RP.plan_frame = lambda *a, **kw: saved[1](*a, **dict(kw, mesh=mesh))
+    try:
+        yield
+    finally:
+        RI.plan_frame, RP.plan_frame = saved
+
+
+def _held(name, make_encoder, banded):
     r = S.RECIPES[name]
     frames = S.make_frames(r)
-    got = S.digest(frames, S.encode(r, make_encoder, frames))
+    got = S.digest(frames, S.encode(r, make_encoder, frames, banded))
     assert S.mismatch(name, got) is None, got
 
 
 def test_every_recipe_is_pinned():
     assert set(S.PINNED) == set(S.RECIPES)
     assert S.LARGE == ["AI", "LDP", "RA", "per-CU search", "AI-Main10",
-                       "RA-Main10"]
+                       "RA-Main10", "RC LDP", "RC CTU LDP", "delta_qp_rd AI",
+                       "delta_qp_rd LDP", "field AI", "field LDP",
+                       "banded AI", "1024x768 RA", "1024x768 banded RA 2",
+                       "1024x768 banded RA 4"]
+    assert all(S.RECIPES[n].width <= 264 for n in S.SMALL)
     for name, r in S.RECIPES.items():
         assert len(S.PINNED[name]["aus"]) == r.frames * (
             2 if r.cfg.get("field_coding") else 1)
@@ -53,30 +87,51 @@ def test_every_recipe_is_pinned():
 
 @pytest.mark.parametrize("name", TIER1)
 def test_jax_package_writes_pinned(name):
-    _held(name, jax_encoder)
+    _held(name, jax_encoder, jax_banded)
 
 
 @pytest.mark.slow
 @pytest.mark.parametrize("name", [n for n in S.RECIPES if n not in TIER1])
 def test_jax_package_writes_pinned_slow(name):
-    _held(name, jax_encoder)
+    _held(name, jax_encoder, jax_banded)
 
 
-@pytest.mark.parametrize("name", ["136x72 RC RA", "136x72 per-CU IPPP"])
+@pytest.mark.parametrize("name", ["136x72 RC RA", "136x72 per-CU IPPP",
+                                  "136x72 banded AI"])
 def test_port_cpu_writes_pinned(name):
-    _held(name, S.port_encoder(CPU))
+    _held(name, S.port_encoder(CPU), S.port_banded(CPU))
 
 
-@pytest.mark.parametrize("bits", [8, 10])
-def test_large_inputs_pinned(bits):
-    """make_yuv(1920, 1080, 9, seed=42) at 8 and 10 bits: each 1080p
-    recipe codes a prefix of it, and its planes hash to PINNED."""
-    names = [n for n in S.LARGE if S.RECIPES[n].bits == bits]
-    assert len(names) == (4 if bits == 8 else 2)
-    frames = S.make_frames(S.RECIPES[names[0]], 9)
+def test_banded_recipe_shows_the_zero_halo():
+    """The pinned stream of `136x72 banded AI` is not the unbanded stream
+    of the same content: over 2 bands the s = 32 rows stop at row 64, and
+    the last band reads its zero halo where the whole picture reads rows
+    64-71 (ROADMAP.md, the zero halo of the banded intra RD)."""
+    r = S.RECIPES["136x72 banded AI"]
+    frames = S.make_frames(r)
+    whole = S.digest(frames, S.encode(dataclasses.replace(r, bands=0),
+                                      S.port_encoder(CPU), frames))
+    pinned = S.PINNED[r.name]
+    assert whole["input"] == pinned["input"]
+    assert whole["aus"] != pinned["aus"]
+    assert whole["stream"] != pinned["stream"]
+
+
+@pytest.mark.parametrize("size,bits,count", [
+    ((1920, 1080), 8, 9), ((1920, 1080), 10, 2), ((1920, 1088), 8, 2),
+    ((1024, 768), 8, 3)], ids=["8", "10", "1920x1088", "1024x768"])
+def test_large_inputs_pinned(size, bits, count):
+    """make_yuv(width, height, n, seed=42) at the bit depth: each large
+    recipe of that size and depth codes a prefix of it, and its planes hash
+    to PINNED."""
+    names = [n for n in S.LARGE if (S.RECIPES[n].width, S.RECIPES[n].height,
+                                    S.RECIPES[n].bits) == (*size, bits)]
+    assert len(names) == count
+    frames = S.make_frames(S.RECIPES[names[0]],
+                           max(S.RECIPES[n].frames for n in names))
     for name in names:
         r = S.RECIPES[name]
-        assert (r.seed, r.chroma, r.frames <= 9) == (42, 420, True)
+        assert (r.seed, r.chroma) == (42, 420)
         assert S.input_digest(frames[:r.frames]) == S.PINNED[name]["input"]
 
 
