@@ -60,6 +60,7 @@ import torch
 from hm16_2_tpu_torch.common.tables import LUMA_FILTER
 from hm16_2_tpu_torch.headers.params import B_SLICE
 from hm16_2_tpu_torch import kernels
+from hm16_2_tpu_torch import trace as _trace
 from hm16_2_tpu_torch.encode import intra_rd
 from hm16_2_tpu_torch.encode.intra_rd import _bit_length, _f32, _fma32, \
     _on_cuda, _pad_to, _quad, _up
@@ -1100,8 +1101,10 @@ class PlanFuture:
 def fetch_plan(fut: PlanFuture, h, w):
     """Wait for a submitted plan and unpack the packed (24, h/4, w/4) plan
     into an InterPlan (one wait per frame)."""
+    wait = _trace.ON and _trace.wait_open()
     if fut.event is not None:
         fut.event.synchronize()
+    wait and _trace.close(wait)
     p = fut.host.numpy().astype(np.int32)
     h4, w4 = h // 4, w // 4
     plan = InterPlan(h4, w4)

@@ -33,6 +33,7 @@ import torch
 
 from hm16_2_tpu_torch.common.tables import INV_QUANT_SCALES
 from hm16_2_tpu_torch import kernels
+from hm16_2_tpu_torch import trace as _trace
 from hm16_2_tpu_torch.ops import analysis
 
 TRANSFORM_MATRIX_SHIFT = 6
@@ -736,8 +737,10 @@ def submit_plan(orig, sps, qp, lam, chroma_weight, chroma_qps,
 
 def fetch_plan(fut: PlanFuture, h, w):
     """Wait for a submitted plan and unpack it (one wait per frame)."""
+    wait = _trace.ON and _trace.wait_open()
     if fut.event is not None:
         fut.event.synchronize()
+    wait and _trace.close(wait)
     pi8 = fut.host.numpy()
     plan = IntraPlan(h // 4, w // 4)
     plan.depth[:] = pi8[0]

@@ -20,6 +20,7 @@ import time
 
 import numpy as np
 
+from hm16_2_tpu_torch import trace as _trace
 from hm16_2_tpu_torch.bitstream.bitio import (
     BitWriter, count_emulation_prevention, make_nal, write_annexb)
 from hm16_2_tpu_torch.bitstream.cabac import CabacCounter, CabacEncoder, ContextSet
@@ -386,6 +387,7 @@ class Encoder:
                                gop_kind="ra8" if cfg.gop == "ra8" else "ld1",
                                lcu_rc=cfg.rc_ctu, ctb=1 << cfg.log2_ctb)
 
+    @_trace.entry
     def encode_frame(self, planes: list[np.ndarray], poc: int,
                      _plan=None) -> bytes:
         """Encode one frame (IDR at intra-period boundaries, else LD-P)."""
@@ -453,6 +455,7 @@ class Encoder:
         return intra_rd.submit_plan(planes, sps, qp_luma, lam, cw, cqps,
                                     self.device)
 
+    @_trace.stepped
     def encode_stream(self, frames):
         """Encode an iterable of frames, yielding one Annex-B AU each.
 
@@ -488,7 +491,9 @@ class Encoder:
         for poc, planes in enumerate(frames):
             planes = [np.ascontiguousarray(p, dtype=np.int32)
                       for p in planes]
+            dispatch = _trace.ON and _trace.open("plan.dispatch", poc)
             fut = self._submit_plan(planes)
+            dispatch and _trace.close(dispatch)
             if pend is not None:
                 yield self.encode_frame(pend[0], pend[1], _plan=pend[2])
             pend = (planes, poc, fut)
@@ -758,6 +763,7 @@ class Encoder:
 
     # ---- random-access (hierarchical-B) push API ----
 
+    @_trace.entry
     def push_frame(self, planes: list[np.ndarray], poc: int) -> list[bytes]:
         """Buffer a display-order frame; returns any AUs that became
         codable, in coding (bitstream) order."""
@@ -766,6 +772,7 @@ class Encoder:
         self._reorder[poc] = planes
         return self._drain(False)
 
+    @_trace.entry
     def flush(self) -> list[bytes]:
         if self.gop_table is None:
             return []
@@ -944,6 +951,7 @@ class Encoder:
         sh.poc = poc             # plan_frame prices by POC distances
         if self.pps.weighted_pred and sh.slice_type == P_SLICE:
             return None          # WP estimation mutates sh per-frame
+        dispatch = _trace.ON and _trace.open("plan.dispatch", poc)
         ref_lists = build_ref_lists(sh, self.dpb)
         rc = RefCtx(sh, ref_lists)
         alpha, mult = self._lambda_args(sh, slot)
@@ -952,6 +960,7 @@ class Encoder:
         fetch = inter_plan.plan_frame(
             planes[0], self.sps, sh, rc, self._prev_mv8,
             float(lam), float(np.sqrt(lam)), self.device, fetch=False)
+        dispatch and _trace.close(dispatch)
         if fetch is None:
             return None
         return sh, fetch
@@ -1060,9 +1069,10 @@ class Encoder:
                     trial=False) -> bytes:
         cfg, sps, pps = self.cfg, self.sps, self.pps
         _st = self.stage_ms
+        span = _trace.ON and not trial and _trace.open("picture", poc)
 
         def _tick(key, t0):
-            _st[key] = _st.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            _st[key] = _trace.stage_end(_st.get(key, 0.0), t0, span, key)
         is_idr = sh.nal_type in (NAL_IDR_W_RADL, NAL_IDR_N_LP)
         if is_idr:
             self.dpb.clear()
@@ -1182,9 +1192,11 @@ class Encoder:
                     cqps.append(
                         int(CHROMA_QP_SCALE[sps.chroma_format_idc][base])
                         + 6 * (sps.bit_depth_chroma - 8))
+                dispatch = span and _trace.open("plan.dispatch", poc)
                 search.plan = intra_rd.plan_frame(
                     planes, sps, qp_luma, search.lam,
                     getattr(search, "chroma_weight", 1.0), cqps, self.device)
+                dispatch and _trace.close(dispatch)   # ended by its fetch
             _tick("plan", t0)
         if sh.slice_type != I_SLICE:
             ref_lists = build_ref_lists(sh, self.dpb)
@@ -1209,10 +1221,12 @@ class Encoder:
                 # candidate lists
                 from hm16_2_tpu_torch.encode import inter_plan
                 t0 = time.perf_counter()
+                dispatch = span and _trace.open("plan.dispatch", poc)
                 search.plan = inter_plan.plan_frame(
                     planes[0], sps, sh, rc, self._prev_mv8,
                     float(search.lam), float(np.sqrt(search.lam)),
                     self.device)
+                dispatch and _trace.close(dispatch)   # ended by its fetch
                 _tick("plan", t0)
             if search.plan is None and cfg.rdo and \
                     not os.environ.get("HM16_NO_ME_PLAN"):
@@ -1230,10 +1244,14 @@ class Encoder:
                     d0 = sh.poc - rc.ref_lists[0][0].poc
                     prior = np.rint(prior.astype(np.float64) * d0 / 64.0) \
                         .astype(np.int32)
+                dispatch = span and _trace.open("plan.dispatch", poc)
                 fetch = inter_me.submit_me(
                     planes[0], rc.ref_lists, prior, lam_sq,
                     sps.pic_height, sps.pic_width, self.device)
+                dispatch and _trace.close(dispatch)
+                wait = span and _trace.wait_open()
                 search.me_plan = fetch()
+                wait and _trace.close(wait)
                 _tick("plan", t0)
         # pass 1: mode decisions + reconstruction (TEncSlice::compressSlice).
         # Planned I-slices commit the whole frame in ONE native call (the
@@ -1264,6 +1282,7 @@ class Encoder:
             # rewrites slice_id); a cut mid-pass must never re-enter it
             search._cctx = False
         t_commit = time.perf_counter()
+        span and _trace.open("commit")       # closed by _tick("commit")
         start_ts = 0
         if search.plan is not None and aq_off is None and \
                 sh.slice_type == I_SLICE and not byte_mode:
@@ -1272,8 +1291,11 @@ class Encoder:
                 import ctypes
 
                 from hm16_2_tpu_torch import native
+                recon = span and _trace.open("commit.recon")
                 rc = native.get_dsp().commit_plan_frame(ctypes.byref(cctx))
                 start_ts = n_ctus if rc == 0 else rc - 1
+                recon and _trace.close(recon, "commit.native_cus",
+                                       _trace.cus_in_ts(pic, start_ts))
         slice_of_ts = np.zeros(n_ctus, dtype=np.int32)
         for i, (ts0, ts1) in enumerate(slice_bounds):
             slice_of_ts[ts0:ts1] = i
@@ -1360,6 +1382,7 @@ class Encoder:
         if not sh.deblocking_filter_disabled:
             from hm16_2_tpu_torch.ops.deblock_ref import deblock_picture
             deblock_picture(pic)
+        span and _trace.split(span, "filters.deblock", t_filt)
         if use_sao:
             from hm16_2_tpu_torch.encode.sao_enc import estimate_sao
             lam = getattr(search, "lam", None)
@@ -1457,6 +1480,7 @@ class Encoder:
                 if ce_ctx is None or not self._native_encode_ctu(
                         enc, cab, ce_ctx, cx, cy, ts == n_ctus - 1):
                     enc.encode_ctu(cx, cy, last_in_slice=(ts == n_ctus - 1))
+                    span and _trace.emit_python(span)
                 if wpp and cx == tile_x0 + 1:
                     wpp_saved = ctx.copy()
             cab.finish()
@@ -1480,6 +1504,8 @@ class Encoder:
         else:
             slice_nals, total_bins, hdr_bits = self._emit_multi_slices(
                 pic, shs, slice_bounds, use_sao)
+            span and _trace.emit_python(span, n_ctus)
+        span and _trace.emit_end(span, n_ctus)
         _tick("emit", t_emit)
         t_fin = time.perf_counter()
 
@@ -1630,6 +1656,7 @@ class Encoder:
 
         au = write_annexb(nals)
         self.bits_per_frame.append(len(au) * 8)
+        span and _trace.close(span)
         if self.rc is not None:
             # feed back only VCL NAL bits (TEncRateCtrl uses the slice
             # bits; VPS/SPS/PPS/SEI would inflate the first frames) and
@@ -1708,6 +1735,7 @@ class CtuSearch:
             # read the TU QP from the part array
             pic.qp[cy * parts:(cy + 1) * parts,
                    cx * parts:(cx + 1) * parts] = self.cur_qp
+        tr = _trace.ON
         if self.plan is not None:
             # native commit engine (handles border CTUs via implicit split)
             cctx = self._commit_ctx()
@@ -1715,11 +1743,16 @@ class CtuSearch:
                 import ctypes
 
                 from hm16_2_tpu_torch import native
+                recon = tr and _trace.open("commit.recon")
                 if native.get_dsp().commit_plan_ctu(
                         ctypes.byref(cctx), cx, cy) == 0:
+                    recon and _trace.close(recon, "commit.native_cus",
+                                           _trace.ctu_cus(pic, cx, cy))
                     return
+                recon and _trace.close(recon, "commit.native_refused_ctus")
             self._commit_plan_tree(cx * parts, cy * parts, pic.log2_ctb)
             return
+        search = tr and _trace.open("commit.search")
         self._allowed_depths = None
         if self.sbd and self.sh.slice_type != I_SLICE and self.rdo:
             self._allowed_depths = self._sbd_allowed(cx, cy)
@@ -1739,6 +1772,7 @@ class CtuSearch:
             self._compress(cx * parts, cy * parts, pic.log2_ctb)
         else:
             self._decide_rec(cx * parts, cy * parts, pic.log2_ctb)
+        search and _trace.close_search(search, _trace.ctu_cus(pic, cx, cy))
 
     # ------------------------------------------------------------------
     # SBD: similarity-based depth-range selection (the fork's encoder-only
@@ -2001,28 +2035,45 @@ class CtuSearch:
         plan = self.plan
         depth = pic.log2_ctb - log2
         covered = inside and bool(plan.cov[py, px])
+        tr = _trace.ON
         if covered and int(plan.depth[py, px]) == depth:
             if getattr(plan, "is_inter_plan", False) and \
                     plan.pred_inter[py, px]:
+                cm = tr and _trace.open("commit.map")
                 if self._commit_planned_inter(px, py, log2):
+                    cm and _trace.close_map(cm, True)
                     return
+                cm and _trace.close_map(cm, False)
                 # infeasible planned motion: fall back to local search
+                cs = tr and _trace.open("commit.search")
                 if self._encode_cu(px, py, log2):
+                    cs and _trace.close_search(cs, 1)
                     return
+                cs and _trace.close_search(cs, 0)
             elif log2 == 3 and plan.nxn[py, px]:
+                cr = tr and _trace.open("commit.recon")
                 self._commit_nxn(px, py)
+                cr and _trace.close(cr, "commit.python_cus")
                 return
             else:
+                cr = tr and _trace.open("commit.recon")
                 self._commit_cu(px, py, log2, int(plan.mode[py, px]),
                                 tusplit=bool(plan.tusplit[py, px]))
+                cr and _trace.close(cr, "commit.python_cus")
                 return
         if inside and not covered:
             # boundary-adjacent area the batched plan skipped: local search
+            cs = tr and log2 <= sps.log2_max_tb and \
+                _trace.open("commit.search")
             if log2 <= sps.log2_max_tb and self._encode_cu(px, py, log2):
+                cs and _trace.close_search(cs, 1)
                 return
+            cs and _trace.close_search(cs, 0)
         if log2 <= sps.log2_min_cb:
             # last resort: 8x8 full search (cannot split further)
+            cs = tr and _trace.open("commit.search")
             self._encode_cu(px, py, log2)
+            cs and _trace.close_search(cs, 1)
             return
         half = 1 << (log2 - 3)
         for sub in range(4):
@@ -2528,10 +2579,14 @@ class CtuSearch:
             import ctypes
 
             from hm16_2_tpu_torch import native
+            recon = _trace.ON and _trace.open("commit.recon")
             if native.get_dsp().inter_commit_cu(
                     ctypes.byref(ic), px, py, log2, int(skip_hint),
                     int(is_merge), int(psize)) == 0:
+                recon and _trace.close(recon, "commit.native_cus")
                 return True
+            recon and _trace.close(recon)
+        _trace.ON and _trace.open("commit.recon", key="python")
         return self._inter_residual_commit(px, py, log2, is_merge,
                                            skip_hint)
 

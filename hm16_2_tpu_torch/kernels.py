@@ -39,10 +39,13 @@ and contiguity, launch, and raise if `cudaGetLastError()` is not 0.
        inter_cu_rd_b                     (K8's B mode)
 
 `LAUNCHES` counts kernel launches per kernel (and per mode of K7 and K8);
-the counts grow only where a kernel is launched.  Nothing here runs at
-import: `nvcc` is looked up and run on the first launch (or an explicit
-`build()`).  Loading the library checks that every argument struct's ctypes
-mirror has the C struct's size.
+the counts grow only where a kernel is launched.  While `trace` is on, each
+public wrapper is a `kernel` span carrying its `LAUNCHES` key (the one-entry
+`ref_buffers` and `ref_buffers_band` are their multi form's span), and each
+launch adds to the `kernel.launches` counter and to its span's `n`.  Nothing
+here runs at import: `nvcc` is looked up and run on the first launch (or an
+explicit `build()`).  Loading the library checks that every argument
+struct's ctypes mirror has the C struct's size.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ import time
 import numpy as np
 import torch
 
+from hm16_2_tpu_torch import trace as _trace
 from hm16_2_tpu_torch.common.tables import ANG_TABLE, DCT, DST4, INV_ANG_TABLE, \
     INV_QUANT_SCALES, QUANT_SCALES
 from hm16_2_tpu_torch.ops.intra_ref import should_filter
@@ -328,6 +332,7 @@ def _launch(kernel, name, *args):
         raise RuntimeError(f"{name}: CUDA error {rc}: "
                            f"{lib.hm_error_string(rc).decode()}")
     LAUNCHES[kernel] += 1
+    _trace.ON and _trace.launched()
 
 
 def _ptr(t):
@@ -442,6 +447,7 @@ def ref_buffers_multi(entries):
     launch: per entry the (N, 2, 4s+1) buffers and (N, s, s) blocks of
     every aligned s-block inside (h, w) of its (ph, pw) plane, raster
     order.  An entry without a block gets empty outputs."""
+    span = _trace.ON and _trace.open("kernel", key="ref_buffers")
     if not 0 < len(entries) <= MAX_K1:
         raise ValueError(f"ref_buffers_multi: {len(entries)} entries, not "
                          f"1..{MAX_K1}")
@@ -458,8 +464,10 @@ def ref_buffers_multi(entries):
                              f"{plane.device} (entry 0 on {dev})")
         args.e[j], out = _k1_entry(plane, s, bd, strong, nby, nbx)
         outs.append(out)
-    return _k1_launch("ref_buffers", "hm_ref_buffers_multi", args, outs,
-                      entries[0][0])
+    result = _k1_launch("ref_buffers", "hm_ref_buffers_multi", args, outs,
+                        entries[0][0])
+    span and _trace.close(span)
+    return result
 
 
 def ref_buffers(plane, s, bd, strong, h, w):
@@ -474,6 +482,7 @@ def ref_buffers_band_multi(band, halo_top, halo_bot, sizes, bd, strong,
     band whose first row is picture row band_first of pic_h, with the band
     above's last row halo_top (1, W) and the band below's first rows
     halo_bot (max(sizes), W)."""
+    span = _trace.ON and _trace.open("kernel", key="ref_buffers_band")
     if not 0 < len(sizes) <= MAX_K1:
         raise ValueError(f"ref_buffers_band_multi: {len(sizes)} sizes, not "
                          f"1..{MAX_K1}")
@@ -495,8 +504,10 @@ def ref_buffers_band_multi(band, halo_top, halo_bot, sizes, bd, strong,
         args.e[j], out = _k1_entry(band, s, bd, strong, B // s, W // s,
                                    min(B + s - 1, pic_h - 1 - band_first))
         outs.append(out)
-    return _k1_launch("ref_buffers_band", "hm_ref_buffers_band_multi", args,
-                      outs, band)
+    result = _k1_launch("ref_buffers_band", "hm_ref_buffers_band_multi", args,
+                        outs, band)
+    span and _trace.close(span)
+    return result
 
 
 def ref_buffers_band(band, halo_top, halo_bot, s, bd, strong, band_first,
@@ -521,6 +532,7 @@ def _need_blocks(bufs, blocks, s):
 
 def intra_size_rd(bufs, blocks, lam, s, bd, k, qp, is_luma, use_dst,
                   want_satd, inter=False):
+    span = _trace.ON and _trace.open("kernel", key="intra_size_rd")
     n = _need_blocks(bufs, blocks, s)
     if not 3 <= k <= 4:
         raise ValueError(f"intra_size_rd: k={k} outside 3..4")
@@ -537,10 +549,12 @@ def intra_size_rd(bufs, blocks, lam, s, bd, k, qp, is_luma, use_dst,
             _ptr(tabs["ang"]), _ptr(tabs["model"]), float(np.float32(lam)),
             k, int(bool(want_satd)), _ptr(mode), _ptr(cost), _ptr(top3),
             _ptr(satd), _stream(bufs))
+    span and _trace.close(span)
     return mode, cost, top3, satd
 
 
 def intra_premodes(bufs, blocks, s, bd):
+    span = _trace.ON and _trace.open("kernel", key="intra_size_rd")
     n = _need_blocks(bufs, blocks, s)
     dev = bufs.device
     tabs = _device_tables(dev)
@@ -550,10 +564,12 @@ def intra_premodes(bufs, blocks, s, bd):
             n, ctypes.byref(p), _ptr(_tmat(tabs, s, False)),
             _ptr(tabs["ang"]), _ptr(tabs["model"]), 0.0, 0, 0, _ptr(mode),
             None, None, None, _stream(bufs))
+    span and _trace.close(span)
     return mode
 
 
 def intra_cand_rd(bufs, blocks, modes, s, bd, qp, is_luma, use_dst):
+    span = _trace.ON and _trace.open("kernel", key="intra_cand_rd")
     n = _need_blocks(bufs, blocks, s)
     kk = modes.shape[1]
     _need(modes, torch.int32, (n, kk), "modes")
@@ -566,6 +582,7 @@ def intra_cand_rd(bufs, blocks, modes, s, bd, qp, is_luma, use_dst):
             _ptr(modes), n, kk, ctypes.byref(p),
             _ptr(_tmat(tabs, s, use_dst)), _ptr(tabs["ang"]),
             _ptr(tabs["model"]), _ptr(dist), _ptr(bits), _stream(bufs))
+    span and _trace.close(span)
     return dist, bits
 
 
@@ -573,6 +590,7 @@ def analysis_step(orig, bufs, qp, s, bd):
     """K2's analysis mode over (..., N, s, s) blocks and their (..., N, 2,
     4s+1) buffers: (best mode, its SATD, levels (..., N, s, s), the int32
     total of the SATDs)."""
+    span = _trace.ON and _trace.open("kernel", key="analysis_step")
     lead = tuple(orig.shape[:-2])
     n = int(np.prod(lead)) if lead else 1
     _need(orig, torch.int32, lead + (s, s), "orig")
@@ -589,6 +607,7 @@ def analysis_step(orig, bufs, qp, s, bd):
     _launch("analysis_step", "hm_analysis_step", _ptr(bufs), _ptr(orig), n,
             ctypes.byref(p), _ptr(_tmat(tabs, s, True)), _ptr(tabs["ang"]),
             _ptr(best), _ptr(cost), _ptr(levels), _ptr(total), _stream(orig))
+    span and _trace.close(span)
     return best, cost, levels, total
 
 
@@ -601,6 +620,7 @@ def plan_pre(dms, satd32, nby64, nbx64):
     each (n,) DM grid of `dms` (at most three) and, with satd32 (nby32,
     nbx32, 35), the (nby64, nbx64) 64x64 modes and their copy per TU32
     (else None, None)."""
+    span = _trace.ON and _trace.open("kernel", key="plan_dp")
     from hm16_2_tpu_torch.encode.intra_rd import CHROMA_BASE_MODES
     if len(dms) > 3:
         raise ValueError("plan_pre: at most three chroma sizes")
@@ -628,6 +648,7 @@ def plan_pre(dms, satd32, nby64, nbx64):
         lead = satd32
     if sum(a.n) + (m64.numel() if m64 is not None else 0):
         _launch("plan_dp", "hm_plan_pre", ctypes.byref(a), _stream(lead))
+    span and _trace.close(span)
     return outs, m64, pm64
 
 
@@ -637,6 +658,7 @@ def plan_dp(lam, cw, h, w, mode_s, cost_s, cand_s, db_s, d64, b64,
     ({s: (d_cb, b_cb, d_cr, b_cr) (n, 5) float32 from K3}), the 64x64 cost
     (d64, b64: K3 at the 64x64 level, or None), the quadtree DP and the
     packed (7, h/4, w/4) int8 plan."""
+    span = _trace.ON and _trace.open("kernel", key="plan_dp")
     from hm16_2_tpu_torch.encode.intra_rd import CHROMA_MODE_BITS, \
         NXN_OVERHEAD_BITS, SPLIT_OVERHEAD_BITS
     dev = cost_s[4].device
@@ -677,6 +699,7 @@ def plan_dp(lam, cw, h, w, mode_s, cost_s, cand_s, db_s, d64, b64,
     out = torch.empty((7, h // 4, w // 4), dtype=torch.int8, device=dev)
     _launch("plan_dp", "hm_plan_ctu", ctypes.byref(g), _ptr(out),
             _stream(cost_s[4]))
+    span and _trace.close(span)
     return out
 
 
@@ -735,6 +758,7 @@ def inter_me(cur, refs, mvp8, lams, h, w, parts, row0=0, full_h=None):
     from hm16_2_tpu_torch.encode.inter_plan import _me_mvp, _shapes
     R = refs.shape[0]
     kernel, full_h = _me_band("inter_me", h, row0, full_h)
+    span = _trace.ON and _trace.open("kernel", key=kernel)
     grids = _me_grids(kernel, cur, refs, mvp8, h, w, row0, full_h)
     dev, st, lam = cur.device, _stream(cur), float(np.float32(lams))
     out = {}
@@ -749,6 +773,7 @@ def inter_me(cur, refs, mvp8, lams, h, w, parts, row0=0, full_h=None):
                 full_h, R, bh, bw, Ny, Nx, _ptr(coarse), _ptr(mvp), lam,
                 _ME_BINS, _ptr(mv), None, st)
         out[(s, part)] = mv
+    span and _trace.close(span)
     return out
 
 
@@ -758,6 +783,7 @@ def me_frame(cur, refs, mvp8, lam, h, w, row0=0, full_h=None):
     may be the band of rows row0.. of a full_h-row picture."""
     R = refs.shape[0]
     kernel, full_h = _me_band("me_frame", h, row0, full_h)
+    span = _trace.ON and _trace.open("kernel", key=kernel)
     grids = _me_grids(kernel, cur, refs, mvp8, h, w, row0, full_h)
     dev, st, lamf = cur.device, _stream(cur), float(np.float32(lam))
     out = {}
@@ -776,6 +802,7 @@ def me_frame(cur, refs, mvp8, lam, h, w, row0=0, full_h=None):
                 full_h, R, s, s, ny, nx, _ptr(coarse), _ptr(mvp), lamf,
                 _ME_LOG, _ptr(mv), _ptr(cost), st)
         out[s] = (mv, cost)
+    span and _trace.close(span)
     return out
 
 
@@ -784,6 +811,7 @@ def me_frame(cur, refs, mvp8, lam, h, w, row0=0, full_h=None):
 # ---------------------------------------------------------------------------
 
 def subpel_planes(refs, bd, h, w):
+    span = _trace.ON and _trace.open("kernel", key="subpel_planes")
     from hm16_2_tpu_torch.encode.inter_plan import MARGIN
     R = refs.shape[0]
     _need(refs, torch.int32, (R, h, w), "refs")
@@ -793,6 +821,7 @@ def subpel_planes(refs, bd, h, w):
                       dtype=torch.int16, device=refs.device)
     _launch("subpel_planes", "hm_subpel_planes", _ptr(refs), R, h, w, bd,
             _ptr(out), _stream(refs))
+    span and _trace.close(span)
     return out
 
 
@@ -835,11 +864,15 @@ def _frac_refine(kernel, sub, cur, mv, qstart, pred4, lams, bh, bw,
 
 
 def frac_refine(sub, cur, mv_int, pred4, lams, bh, bw):
-    return _frac_refine("inter_uni", sub, cur, mv_int, False, pred4, lams, bh,
-                        bw)
+    span = _trace.ON and _trace.open("kernel", key="inter_uni")
+    result = _frac_refine("inter_uni", sub, cur, mv_int, False, pred4, lams,
+                          bh, bw)
+    span and _trace.close(span)
+    return result
 
 
 def frac_refine_any(sub, cur, mv4, uref, anchor4, o_uref, o_mv4, lams, s):
+    span = _trace.ON and _trace.open("kernel", key="inter_bi_refine")
     h, w = cur.shape
     ny, nx = h // s, w // s
     _need(mv4, torch.int32, (ny * nx, 2), "mv4")
@@ -848,6 +881,7 @@ def frac_refine_any(sub, cur, mv4, uref, anchor4, o_uref, o_mv4, lams, s):
                              mv4.reshape(1, ny, nx, 2), True,
                              anchor4.reshape(1, ny, nx, 2), lams, s, s,
                              uref=uref, other=(o_uref, o_mv4))
+    span and _trace.close(span)
     return out[0], satd[0]
 
 
@@ -855,6 +889,7 @@ def uni_select_all(entries, lams):
     """K7's list picks of every entry (mvq (R, N, 2), satd (R, N), pred4
     (R, N, 2), lmap (mr,), nref) of a picture in one launch: one dict per
     entry, whose tensors are views of two arenas."""
+    span = _trace.ON and _trace.open("kernel", key="inter_pick")
     if not 0 < len(entries) <= MAX_PICK:
         raise ValueError(f"uni_select_all: {len(entries)} entries, not "
                          f"1..{MAX_PICK}")
@@ -890,10 +925,12 @@ def uni_select_all(entries, lams):
     ints = iout[:2 * off].split(two)
     pairs = iout[2 * off:].view(2 * off, 2).split(two)
     floats = fout.split([n for N in sizes for n in (N, N, N)])
-    return [{"ridx": ints[2 * k], "uref": ints[2 * k + 1],
-             "mv": pairs[2 * k], "anchor": pairs[2 * k + 1],
-             "satd": floats[3 * k], "bits": floats[3 * k + 1],
-             "cost": floats[3 * k + 2]} for k in range(len(sizes))]
+    result = [{"ridx": ints[2 * k], "uref": ints[2 * k + 1],
+               "mv": pairs[2 * k], "anchor": pairs[2 * k + 1],
+               "satd": floats[3 * k], "bits": floats[3 * k + 1],
+               "cost": floats[3 * k + 2]} for k in range(len(sizes))]
+    span and _trace.close(span)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -957,13 +994,17 @@ def _cu_rd_launch(kernel, a, cur, s, N, is_b):
 
 def cu_rd(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf, lams, qp, bd,
           nmerge):
+    span = _trace.ON and _trace.open("kernel", key="inter_cu_rd")
     a, N = _cu_rd_args(cur, sub, s, uni, tmvp4, ref0, rect, intra, lamf,
                        lams, qp, bd, nmerge)
-    return _cu_rd_launch("inter_cu_rd", a, cur, s, N, False)
+    result = _cu_rd_launch("inter_cu_rd", a, cur, s, N, False)
+    span and _trace.close(span)
+    return result
 
 
 def cu_rd_b(cur, sub, s, uni, tmvp4, first, nref, mvb, rect, intra, lamf,
             lams, qp, bd, nmerge):
+    span = _trace.ON and _trace.open("kernel", key="inter_cu_rd_b")
     a, N = _cu_rd_args(cur, sub, s, uni[0], tmvp4[0], first[0],
                        None if rect is None else {p: e[0] for p, e in
                                                   rect.items()},
@@ -982,7 +1023,9 @@ def cu_rd_b(cur, sub, s, uni, tmvp4, first, nref, mvb, rect, intra, lamf,
         uni[1]["anchor"].data_ptr()
     a.mvb0, a.mvb1 = mvb[0].data_ptr(), mvb[1].data_ptr()
     a.nref0, a.nref1 = int(nref[0]), int(nref[1])
-    return _cu_rd_launch("inter_cu_rd_b", a, cur, s, N, True)
+    result = _cu_rd_launch("inter_cu_rd_b", a, cur, s, N, True)
+    span and _trace.close(span)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -990,6 +1033,7 @@ def cu_rd_b(cur, sub, s, uni, tmvp4, first, nref, mvb, rect, intra, lamf,
 # ---------------------------------------------------------------------------
 
 def emit_inter_plan(recs, costs, lamf, h, w):
+    span = _trace.ON and _trace.open("kernel", key="plan_dp")
     from hm16_2_tpu_torch.encode.inter_plan import NREC, PLAN_CHANNELS, \
         SIZES, SPLIT_BITS
     lead = next(c for c in costs.values() if c is not None)
@@ -1006,4 +1050,5 @@ def emit_inter_plan(recs, costs, lamf, h, w):
                       device=lead.device)
     _launch("plan_dp", "hm_emit_inter_plan", ctypes.byref(g), _ptr(out),
             _stream(lead))
+    span and _trace.close(span)
     return out

@@ -216,13 +216,17 @@ def get_lib():
     if _lib is not None:
         return _lib
     if os.environ.get("HM16_NO_NATIVE"):
+        from hm16_2_tpu_torch import trace
+        trace.unavailable("cabac_core", "HM16_NO_NATIVE is set")
         return None
     try:
         if (not os.path.exists(_SO) or
                 os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
             _build()
         lib = ctypes.CDLL(_SO)
-    except Exception:
+    except Exception as e:
+        from hm16_2_tpu_torch import trace
+        trace.unavailable("cabac_core", e)
         return None
     lib.set_tables.argtypes = [ctypes.c_void_p] * 4
     lib.decode_residual.argtypes = [
@@ -269,6 +273,8 @@ def get_dsp():
         return _dsp
     if os.environ.get("HM16_NO_NATIVE"):
         _dsp_failed = True
+        from hm16_2_tpu_torch import trace
+        trace.unavailable("dsp_core", "HM16_NO_NATIVE is set")
         return None
     try:
         if (not os.path.exists(_SO_DSP) or
@@ -278,8 +284,10 @@ def get_dsp():
                  "-fPIC", "-o", _SO_DSP, _SRC_DSP],
                 check=True, capture_output=True)
         lib = ctypes.CDLL(_SO_DSP)
-    except Exception:
+    except Exception as e:
         _dsp_failed = True
+        from hm16_2_tpu_torch import trace
+        trace.unavailable("dsp_core", e)
         return None
     lib.set_dsp_tables.argtypes = [ctypes.c_void_p] * 7
     lib.code_tu.argtypes = [

@@ -996,9 +996,6 @@ static int cc_refine(const CommitCtx *C, int px, int py, int log2,
                                       cc_mdcs_scan(size, 0, mode))
                          : 0.8) + mb;
       double cost = dist + C->lam * bits;
-      if (getenv("HM16_CC_DEBUG"))
-        fprintf(stderr, "ccref %d,%d l%d m%d d%.1f b%.2f c%.1f\n", px, py,
-                log2, mode, dist, bits, cost);
       if (first || cost < best_cost) {
         first = false;
         best_cost = cost;
@@ -1284,9 +1281,6 @@ static int cc_walk(const CommitCtx *C, int px, int py, int log2) {
                         C->plan_tusplit[py * C->plan_w + px]);
   }
   if (pd < depth || log2 <= 3) {
-    if (getenv("HM16_CC_DEBUG"))
-      fprintf(stderr, "ccfail walk %d,%d l%d pd%d depth%d\n", px, py, log2,
-              pd, depth);
     return -1;   // plan inconsistency / uncovered area: host fallback
   }
   int half = 1 << (log2 - 3);
