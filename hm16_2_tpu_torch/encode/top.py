@@ -1750,6 +1750,13 @@ class CtuSearch:
                                            _trace.ctu_cus(pic, cx, cy))
                     return
                 recon and _trace.close(recon, "commit.native_refused_ctus")
+            if getattr(self.plan, "is_inter_plan", False):
+                # native walk of the inter plan's CTU (merge/AMVP lists,
+                # rerank, field writes, residual); a CTU it cannot take
+                # comes back untouched and commits below
+                from hm16_2_tpu_torch.encode import inter_walk
+                if inter_walk.commit_ctu(self, cx, cy):
+                    return
             self._commit_plan_tree(cx * parts, cy * parts, pic.log2_ctb)
             return
         search = tr and _trace.open("commit.search")

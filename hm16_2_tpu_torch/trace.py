@@ -28,7 +28,10 @@ for, and its parent (the span open when it began; None for a root):
                      merge and AMVP lists (its self time; its
                      reconstruction is a commit.recon inside it)
       commit.recon   reconstruction of planned CUs: the native intra walk,
-                     `inter_commit_cu`, or their Python fallbacks
+                     the native inter walk of a CTU (`encode/inter_walk.py`,
+                     key "inter_walk": lists, rerank, fields and residual
+                     in one C call), `inter_commit_cu`, or their Python
+                     fallbacks
       commit.search  the host's local search, a plan's fallback or the
                      whole CTU of a picture without a plan
     filters.deblock  `stage_ms["filters"]` up to the end of deblocking
@@ -39,7 +42,8 @@ for, and its parent (the span open when it began; None for a root):
                      `key` is its `kernels.LAUNCHES` key
 
 A span's `key` is None elsewhere, but for a Python reconstruction of a
-planned inter CU ("python"), which ends with the commit.map it runs in.
+planned inter CU ("python"), which ends with the commit.map it runs in,
+and for the native inter walk ("inter_walk").
 Its `n` is a count kept on it: a kernel span's launches, a picture's CTUs
 written by the Python syntax writer.
 
@@ -49,7 +53,9 @@ equals its stage to the nanosecond.  Counters are integers under (name, POC):
     commit.native_cus, commit.python_cus   CUs finally committed, by the
                                            code that reconstructed them
     commit.search_cus                      of those, found by local search
-    commit.native_refused_ctus             CTUs the native walk handed back
+    commit.native_refused_ctus             CTUs a native walk handed back
+    commit.walk_ctus                       CTUs the native inter walk
+                                           committed
     emit.native_ctus, emit.python_ctus     CTUs by the syntax writer used
     kernel.launches                        kernel launches
     native.unavailable                     (POC None) native libraries
