@@ -1135,7 +1135,8 @@ _REF_CACHE: dict = {}     # id(plane) -> (weakref(plane), device tensor)
 def _device_ref(plane, h, w, device):
     """Device copy of a reference plane, cached across frames: keyed by
     object identity with a weakref guard (a recycled id cannot alias a new
-    plane), least recently used evicted beyond 24 entries."""
+    plane), least recently used evicted beyond 24 entries.  A miss counts
+    under the tracer's `plan.ref_uploads`."""
     key = (id(plane), str(device))
     ent = _REF_CACHE.get(key)
     if ent is not None:
@@ -1145,6 +1146,7 @@ def _device_ref(plane, h, w, device):
             return t
         del _REF_CACHE[key]
     t = _to_device(plane[:h, :w], device)
+    _trace.ON and _trace.count("plan.ref_uploads")
     try:
         ref_w = weakref.ref(plane)
     except TypeError:
@@ -1228,13 +1230,18 @@ def submit_plan(orig_y, sps, sh, rc, prev_mv8, lam, lam_sqrt,
     parts = not os.environ.get("HM16_NO_PLAN_PARTS")
     mvn16 = (np.zeros((h // 8, w // 8, 2), np.int32) if prev_mv8 is None
              else np.asarray(prev_mv8, np.int32))
+    tr = _trace.ON
+    up = tr and _trace.open("plan.upload", sh.poc)
     refs = torch.stack([_to_device(p[:h, :w], device) if weighted
                         else _device_ref(p, h, w, device) for p in planes])
+    tr and weighted and _trace.count("plan.ref_uploads", len(planes))
     lmaps = [torch.as_tensor(m, dtype=torch.int32, device=device)
              for m in maps]
     cur = _to_device(orig_y[:h, :w], device)
     mvn16 = _to_device(mvn16, device)
     dists = torch.as_tensor(dists, dtype=torch.int32, device=device)
+    up and _trace.close(up)
+    tr and _trace.count("plan.refs", len(planes), sh.poc)
     me = None
     if mesh is not None:
         from hm16_2_tpu_torch.parallel import plan_shard

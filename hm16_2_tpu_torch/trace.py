@@ -22,6 +22,9 @@ for, and its parent (the span open when it began; None for a root):
     plan.dispatch    the enqueue of a plan, with the POC of the picture the
                      plan is for, in the call or picture it runs in; an
                      in-call plan's dispatch ends where its fetch begins
+      plan.upload    an inter plan's copies of its reference planes, the
+                     picture and the motion prior to the device
+                     (`inter_plan.submit_plan`)
     plan.wait        blocked on a plan until its data is on the host
     commit           `stage_ms["commit"]`, with these children:
       commit.map     Python mapping of a planned inter CU onto the exact
@@ -58,6 +61,13 @@ equals its stage to the nanosecond.  Counters are integers under (name, POC):
                                            committed
     emit.native_ctus, emit.python_ctus     CTUs by the syntax writer used
     kernel.launches                        kernel launches
+    plan.refs                              live unique reference planes an
+                                           inter plan priced
+    plan.ref_uploads                       reference planes a plan copied
+                                           to the device: misses of
+                                           `inter_plan._device_ref`'s cache
+                                           (an ME plan's too), weighted
+                                           planes
     native.unavailable                     (POC None) native libraries
                                            that did not load; the reasons
                                            are in `Record.unavailable`

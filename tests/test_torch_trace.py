@@ -3,16 +3,19 @@ encoder's host work.  Tracing on and off code the same bytes; off, nothing
 is recorded; on, every span has its parent and its POC, each picture's
 commit parts lie inside its commit, the stage spans equal `stage_ms`, each
 plan is dispatched before it is waited for, the CUs counted by the code
-that reconstructed them cover each picture once, and the CTUs counted by
-syntax writer are the picture's CTUs.  On the card each plan's kernels run
-inside its dispatch-to-wait interval, read through the benchmark's device
-trace (`portbench/pb_trace.py`, `pb_spans.py`) with the spans put on its
-clock.  This file imports neither
+that reconstructed them cover each picture once, the CTUs counted by
+syntax writer are the picture's CTUs, and each inter plan's upload lies
+inside its dispatch and counts the references it priced and copied (LDP:
+HM-16.2's published low-delay P table, four references from POC 10).  On
+the card each plan's kernels run inside its dispatch-to-wait interval, read
+through the benchmark's device trace (`portbench/pb_trace.py`,
+`pb_spans.py`) with the spans put on its clock.  This file imports neither
 JAX nor the JAX package:
 
     python -m pytest --noconftest tests/test_torch_trace.py -q
 """
 
+import json
 import os
 import sys
 
@@ -37,7 +40,20 @@ def _planes(frame):
     return [np.ascontiguousarray(p, dtype=np.int32) for p in frame]
 
 
+def _ldp_table():
+    with open(os.path.join(PORTBENCH, "configs",
+                           "ctc-ldp-main-1080p.json")) as f:
+        return json.load(f)["encoder"]["gop_table"]
+
+
+def _side(kind):
+    return (64, 64) if kind in ("search", "ldp") else (W, H)
+
+
 def _cfg(kind):
+    if kind == "ldp":
+        return EncoderConfig(64, 64, qp=32, intra_period=0, gop="ld",
+                             decoding_refresh_type=0, gop_table=_ldp_table())
     if kind == "ai":
         return EncoderConfig(W, H, qp=32, intra_period=1)
     if kind in ("ra", "python"):
@@ -50,7 +66,8 @@ def _encode(kind, device=CPU):
     change.  ai: three pictures through the pipelined encode_stream; ra:
     IDR + GOP 8 through push_frame and flush (python: the same, with the
     native commit engine off); search: IDR + one P picture of the per-CU
-    search (no inter plan)."""
+    search (no inter plan); ldp: IDR + 16 P pictures of HM-16.2's published
+    low-delay P table, four references from POC 10."""
     enc = Encoder(_cfg(kind), device)
     depth, stages = {}, {}
     add, one = enc.dpb.add, enc._encode_one
@@ -70,10 +87,9 @@ def _encode(kind, device=CPU):
     if kind == "ai":
         aus = list(enc.encode_stream(make_yuv(W, H, 3, seed=42)))
     else:
-        n = 2 if kind == "search" else 9
-        side = (64, 64) if kind == "search" else (W, H)
+        n = {"search": 2, "ldp": 17}.get(kind, 9)
         aus = []
-        for poc, f in enumerate(make_yuv(*side, n, seed=42)):
+        for poc, f in enumerate(make_yuv(*_side(kind), n, seed=42)):
             aus += enc.push_frame(_planes(f), poc)
         aus += enc.flush()
     return aus, depth, stages, enc.sps.log2_ctb
@@ -117,14 +133,15 @@ def runs():
     return out
 
 
-KINDS = ("ai", "ra", "search", "python")
+# python last: it leaves the native library off until the fixture ends
+KINDS = ("ai", "ra", "search", "ldp", "python")
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_tracing_codes_the_same_bytes(runs, kind):
     off, on = runs[kind][:2]
-    assert on == off and len(on) == (3 if kind == "ai" else
-                                     2 if kind == "search" else 9)
+    assert on == off and len(on) == {"ai": 3, "search": 2,
+                                     "ldp": 17}.get(kind, 9)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -175,6 +192,7 @@ def test_commit_parts_inside_their_commit(runs, kind):
     # commit.recon each; python: without the native library, each planned
     # inter CU maps in Python
     want = {"ai": {"commit.recon"}, "ra": {"commit.recon"},
+            "ldp": {"commit.recon"},
             "python": {"commit.map", "commit.recon"},
             "search": {"commit.recon", "commit.search"}}[kind]
     assert {s.name for s in parts} == want
@@ -229,7 +247,7 @@ def test_each_plan_dispatched_before_its_wait(runs, kind):
 @pytest.mark.parametrize("kind", KINDS)
 def test_cus_by_path_cover_each_picture_once(runs, kind):
     rec, depth, log2_ctb = runs[kind][2], runs[kind][4], runs[kind][6]
-    side = (64, 64) if kind == "search" else (W, H)
+    side = _side(kind)
     c = rec.counters
     for poc, d in depth.items():
         cus = int(trace._cus(d, log2_ctb, side[1] // 4, side[0] // 4).sum())
@@ -251,7 +269,7 @@ def test_cus_by_path_cover_each_picture_once(runs, kind):
 @pytest.mark.parametrize("kind", KINDS)
 def test_emitted_ctus_by_writer(runs, kind):
     rec = runs[kind][2]
-    side = (64, 64) if kind == "search" else (W, H)
+    side = _side(kind)
     ctb = 1 << runs[kind][6]
     n_ctus = -(-side[0] // ctb) * -(-side[1] // ctb)
     for poc in runs[kind][5]:
@@ -260,6 +278,37 @@ def test_emitted_ctus_by_writer(runs, kind):
         # I slices: the native writer; P and B slices: the Python one
         assert (nat, py) == ((n_ctus, 0) if kind == "ai" or poc == 0
                              else (0, n_ctus))
+
+
+@pytest.mark.parametrize("kind", ("ra", "ldp"))
+def test_plan_upload_inside_its_dispatch(runs, kind):
+    """Each P or B picture's inter plan copies its references, picture
+    and prior to the device in one plan.upload, inside the plan.dispatch
+    of the same POC."""
+    rec, stages = runs[kind][2], runs[kind][5]
+    ups = [s for s in rec.spans if s.name == "plan.upload"]
+    assert sorted(s.poc for s in ups) == sorted(p for p in stages if p)
+    for s in ups:
+        d = rec.spans[s.parent]
+        assert d.name == "plan.dispatch" and d.poc == s.poc
+
+
+def test_plan_refs_and_uploads(runs):
+    """Low-delay P: each plan prices the table's references held by then
+    (four from POC 10 on) and copies one plane to the device, the picture
+    coded before it; the others are the reference cache's.  Random access:
+    a plan copies at most the planes it prices, and each picture once."""
+    c = runs["ldp"][2].counters
+    assert [c[("plan.refs", p)] for p in range(1, 17)] == \
+        [1] + [2] * 4 + [3] * 4 + [4] * 7
+    assert [c.get(("plan.ref_uploads", p), 0) for p in range(1, 17)] == \
+        [1] * 16
+    assert ("plan.refs", 0) not in c
+    c = runs["ra"][2].counters
+    ups = [c.get(("plan.ref_uploads", p), 0) for p in range(1, 9)]
+    assert all(0 <= u <= c[("plan.refs", p)] for p, u in zip(range(1, 9),
+                                                              ups))
+    assert 0 < sum(ups) <= 8
 
 
 def test_pipelined_dispatch_belongs_to_the_next_picture(runs):
