@@ -1288,11 +1288,10 @@ class Encoder:
                 sh.slice_type == I_SLICE and not byte_mode:
             cctx = search._commit_ctx()
             if cctx is not None:
-                import ctypes
-
-                from hm16_2_tpu_torch import native
+                # the same walk as a CTU wavefront over the host's cores
+                from hm16_2_tpu_torch.encode import intra_wave
                 recon = span and _trace.open("commit.recon")
-                rc = native.get_dsp().commit_plan_frame(ctypes.byref(cctx))
+                rc = intra_wave.commit_frame(cctx, pic)
                 start_ts = n_ctus if rc == 0 else rc - 1
                 recon and _trace.close(recon, "commit.native_cus",
                                        _trace.cus_in_ts(pic, start_ts))

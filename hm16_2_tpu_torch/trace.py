@@ -59,6 +59,13 @@ equals its stage to the nanosecond.  Counters are integers under (name, POC):
     commit.native_refused_ctus             CTUs a native walk handed back
     commit.walk_ctus                       CTUs the native inter walk
                                            committed
+    commit.wave_threads                    threads the native intra walk
+                                           of a planned I picture ran
+                                           with (`encode/intra_wave.py`);
+                                           1 when serial
+    commit.wave_ctus                       CTUs its wavefront committed
+    commit.wave_wait_ms                    summed ms its workers waited on
+                                           the CTU row above
     emit.native_ctus, emit.python_ctus     CTUs by the syntax writer used
     kernel.launches                        kernel launches
     plan.refs                              live unique reference planes an
