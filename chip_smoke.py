@@ -24,72 +24,36 @@ own (a picture's sizes and planes in one launch at 232x152, 136x72, one
 CTU and a picture too short for s = 32; a plane larger than the picture;
 the strong-smoothing threshold met on both sides at 8, 10 and 12 bits; the
 band mode's groups and its zero halo; `check_k1_edges`), prints K2's and
-K3's time by case beside the bound, then drives the port's paths:
+K3's time by case beside the bound, then:
 
-- all-intra (HM's common-test All Intra Main configuration: QP 32, 8-bit
-  4:2:0, deblocking, SAO, MD5 picture hash) over three 1080p frames through
-  `Encoder.encode_stream`, and the per-frame entry `encode_frame`;
-- low-delay P (HM's Low Delay P Main: GOP 4, four references, QP offsets
-  +5/+4/+5/+1 on 32) over five 1080p frames, IDR + one GOP, through
-  `push_frame` / `flush`;
-- random access (HM's Random Access Main: hierarchical-B GOP 8, intra
-  period 32, QP 32 with offsets +1..+4 by depth) over nine 1080p frames,
-  IDR + one GOP of eight B pictures, through `push_frame` / `flush`;
-- the per-CU inter search (no fused plan, HM16_NO_INTER_PLAN, with the
-  fork's RRSP fast partitioning) over an IDR and one P picture of 1080p
-  through `encode_frame`;
-- HM's All Intra Main10 over three 1080p frames and Random Access Main10
-  over IDR + one GOP of eight B pictures on 10-bit content (`main10_phase`:
-  the configurations tools/encode.py builds from the Main10 cfg files; the
-  first 10-bit I and B plans run again with every kernel held to its plain
-  version);
-- HM's Low Delay P Main under R-lambda rate control at 4 Mbit/s, at
-  picture and at CTU level, over five 1080p frames (`rc_phase`: each
-  picture's QP, lambda and bits against its target; every kernel of the
-  first P plan held to its plain version at the model's lambda and at the
-  ends of the model's lambda range);
-- delta_qp_rd=1 on two 1080p AI frames and five 1080p LDP frames
-  (`dqp_phase`: four plans per picture, asserted by K1's and K4's
-  launches);
-- field coding of 1920x1088 AI over two frames and LDP over three
-  (`field_phase`: 544-row fields, partial CTU rows);
-- the encoder CLI on its default device (HM's Low Delay P Main cfg);
-- the row-banded path (`hm16_2_tpu_torch/parallel/`) with its bands on this
-  one card: K1's and K5's band modes and K2's analysis mode against their
-  plain versions (1080p, and 1024x768, HM's class F size, over 2 and 4
-  bands with four references), the banded grids against the whole
-  picture's, two 1080p AI frames with the intra plan banded and a 1024x768
-  RA GOP 8 with both plans banded over 2 and 4 bands, each against the
-  unbanded bytes where the JAX package's two streams are equal, and the
-  port's scaling_bench (bands sharing one card: the
-  plumbing cost, not multi-GPU scaling);
+- codes every recipe of `hm16_2_tpu_torch/tools/stream_digest.py` once
+  on the card through its `check`: each stream, its input planes first,
+  held to the JAX package's SHA-256 (`PINNED`; the card's machine has no
+  JAX, and the tests reproduce the pins from the JAX package), every
+  picture decoded hash_ok by the port's decoder, the launches held to
+  `EXPECT`, the small streams to the CPU's bytes and the banded streams to
+  their unbanded twins' where the JAX package's are equal; the first I
+  and B plans of Main10 RA and the first P plan of rate-controlled LDP at
+  picture and CTU level (at picture level also at the ends of the model's
+  lambda range) run again with every kernel held to its plain version
+  (`REPLAYS`);
+- runs the encoder CLI on its default device (HM's Low Delay P Main cfg);
+- runs the row-banded analysis step and the port's scaling_bench with
+  four bands on this one card (the plumbing cost, not multi-GPU scaling);
 
-decodes the streams with the port's decoder and checks every picture hash,
-holds every stream it encodes (AI, LDP, RA, the per-CU search, Main10 AI
-and RA, rate control at picture and CTU level, delta_qp_rd AI and LDP,
-field-coded AI and LDP, the banded 1080p AI, the 1024x768 RA and its
-banded runs over 2 and 4 bands), its input planes first, to the JAX
-package's SHA-256 pinned in `hm16_2_tpu_torch/tools/stream_digest.py`
-(the card's machine has no JAX; the tests reproduce the pins from the JAX
-package), and checks small encodes on the card (AI, LDP, RA,
-rate-controlled LDP and RA, delta_qp_rd AI and LDP, field-coded AI and
-LDP, the per-CU search's IPPP and RA, and an AI banded over 2 bands whose
-stream shows the reference's zero halo) against the same encodes on the
-CPU and both against the pinned digests.  Every time printed stands beside
-the card's name and power limit, and each phase's seconds are printed at
-the end.  Every failure raises; the last line of standard output is the
-device JSON, the line before it the kernel table.  Needs a CUDA device and
-exits non-zero without one.
+and checks that neither jax nor the JAX package was imported.  Every time
+printed stands beside the card's name and power limit.  Every failure
+raises; the last line of standard output is the device JSON, the line
+before it the kernel table.  Needs a CUDA device and exits non-zero
+without one.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import io
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -104,14 +68,6 @@ W, H, QP = 1920, 1080, 32
 # int32 and float32 operations are held to
 HBM_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
 CARD = "card not read"
-
-
-def _card_line():
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    return r.stdout.strip().splitlines()[0] if r.returncode == 0 else \
-        f"nvidia-smi failed: {r.stderr.strip()}"
 
 
 def _cuda_ms(fn, reps):
@@ -1535,15 +1491,6 @@ SOURCES = {
     "me_frame_band": ("inter_me.cu", "hm16_2_tpu/parallel/me_shard.py:40"),
     "analysis_step": ("intra_rd.cu", "hm16_2_tpu/parallel/mesh.py:32"),
 }
-BAND = ("ref_buffers_band", "inter_me_band", "me_frame_band",
-        "analysis_step")                          # kernels of parallel/ only
-B_ONLY = ("inter_bi_refine", "inter_cu_rd_b")     # kernels of B pictures only
-INTRA = ("ref_buffers", "intra_size_rd", "intra_cand_rd", "plan_dp")
-# the kernels of the fused plan
-PLAN_ONLY = ("inter_me", "subpel_planes", "inter_uni", "inter_pick",
-             "inter_bi_refine", "inter_cu_rd", "inter_cu_rd_b")
-
-
 def _ptxas(report, names):
     """ptxas's registers, stack, spills and static shared memory of each
     kernel whose mangled name holds one of `names`, one line each."""
@@ -1561,18 +1508,6 @@ def _ptxas(report, names):
     return out
 
 
-PHASE_S = {}                    # seconds of each phase of main
-
-
-@contextlib.contextmanager
-def _phase(label):
-    """Time the block as phase `label` of main, beside the card."""
-    t0 = time.perf_counter()
-    yield
-    PHASE_S[label] = time.perf_counter() - t0
-    print(f"phase {label}: {PHASE_S[label]:.1f} s  [{CARD}]", flush=True)
-
-
 def _launches_of(K, run, label, need):
     """Drive `run` with every launch count at 0; fail if a kernel of `need`
     was never launched.  Returns (result, counts)."""
@@ -1587,255 +1522,12 @@ def _launches_of(K, run, label, need):
     return out, counts
 
 
-def _decode_check(aus, n, label):
-    from hm16_2_tpu_torch.decode.top import Decoder
-    t0 = time.perf_counter()
-    pics = Decoder().decode_stream(b"".join(aus))
-    print(f"{label}: decoded {len(pics)} pictures in "
-          f"{time.perf_counter() - t0:.1f} s, hash_ok "
-          f"{[p.hash_ok for p in pics]}  [{CARD}]", flush=True)
-    if len(pics) != n or not all(p.hash_ok is True for p in pics):
-        raise AssertionError(f"{label}: decoded picture hash mismatch")
-
-
-# K4-K8's kernels by the names the profiler gives them
-KERNEL_SPLIT = {"K4 plan_dp": ("plan_pre_kernel", "plan_ctu_kernel",
-                               "emit_inter_kernel"),
-                "K5 refinement": ("me_refine_kernel",),
-                "K5 coarse argmin": ("me_argmin_kernel",),
-                "K5 rest (downsample, coarse grid, pyramid)": (
-                    "me_down_kernel", "me_coarse8_kernel", "me_quad_kernel"),
-                "K6 subpel": ("subpel_kernel",),
-                "K7 frac_refine": ("frac_refine_kernel",),
-                "K7 list picks": ("uni_select_all_kernel",),
-                "K8 CU pricing": ("cu_rd_kernel",)}
-
-
-def _timed_pictures(enc, code, label, top):
-    """Code the pictures of `code()` (a list of AUs) under torch.profiler
-    (device activity only); prints the device busy share and the `top`
-    kernels by device time.  Returns (AUs, seconds, stage_ms of these
-    pictures)."""
-    from torch.profiler import ProfilerActivity, profile
-    before = dict(enc.stage_ms)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        aus = code()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"profile of the {label}: device busy {busy:.3f} ms of "
-          f"{wall * 1e3:.3f} ms wall = {100 * busy / (wall * 1e3):.3f}%  "
-          f"[{CARD}]", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.3f}"
-              f" ms  x{e.count}", flush=True)
-    split = {g: sum(e.self_device_time_total for e in events
-                    if any(k in e.key for k in keys)) / 1e3
-             for g, keys in KERNEL_SPLIT.items()}
-    if any(split.values()):
-        print(f"K4-K8 device ms of the {label}: " + "; ".join(
-            f"{g} {v:.3f}" for g, v in split.items()) + f"  [{CARD}]",
-            flush=True)
-    return aus, wall, {k: v - before.get(k, 0.0)
-                       for k, v in enc.stage_ms.items()}
-
-
-def _report(label, n, unit, idr_s, wall, stage, aus, extra=""):
-    print(f"{label}: {len(aus)} pictures; IDR {idr_s:.3f} s; {n} {unit} "
-          f"pictures in {wall:.3f} s = {n / wall:.3f} fps, "
-          f"{wall / n:.3f} s per {unit} picture{extra}; bytes "
-          f"{[len(a) for a in aus]}  [{CARD}]", flush=True)
-    print(f"stage_ms per {unit} picture: " + json.dumps(
-        {k: round(v / n, 3) for k, v in stage.items()}) + f"  [{CARD}]",
-        flush=True)
-
-
-def _idr(code):
-    """Code the IDR picture(s) of `code()`; returns (AUs, seconds)."""
-    t0 = time.perf_counter()
-    aus = code()
-    torch.cuda.synchronize()
-    return aus, time.perf_counter() - t0
-
-
-def _picks_per_picture(counts, n, label):
-    """K7's list picks are one launch per planned picture."""
-    print(f"{label}: {counts['inter_pick']} list-pick launches for {n} "
-          f"planned pictures, {counts['inter_uni']} q-pel launches",
-          flush=True)
-    if counts["inter_pick"] != n:
-        raise AssertionError(f"{label}: {counts['inter_pick']} list-pick "
-                             f"launches for {n} pictures")
-
-
-@contextlib.contextmanager
-def _k1_per_plan():
-    """Inside the block, each P/B plan (`inter_plan._plan_device`) adds its
-    K1 launches to the yielded list."""
-    from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.encode import inter_plan as P
-    saved, seen = P._plan_device, []
-
-    def plan(*a, **kw):
-        before = K.LAUNCHES["ref_buffers"]
-        out = saved(*a, **kw)
-        seen.append(K.LAUNCHES["ref_buffers"] - before)
-        return out
-
-    P._plan_device = plan
-    try:
-        yield seen
-    finally:
-        P._plan_device = saved
-
-
-def _k1_once_per_plan(seen, n, label):
-    """K1 is one launch per P/B plan: the intra alternative's sizes."""
-    print(f"{label}: K1 launches per P/B plan {seen}", flush=True)
-    if seen != [1] * n:
-        raise AssertionError(f"{label}: K1 launches per plan {seen}, not one "
-                             f"in each of {n}")
-
-
-def ai_phase(recipe, frames, dev):
-    """HM's All Intra Main over three frames through encode_stream
-    (`recipe`, stream_digest's "AI"): prints fps and stage_ms, checks every
-    picture hash and that encode_frame of frame 0 writes AU 0.  Returns
-    the AUs and the launch counts."""
-    from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.tools import stream_digest as S
-    W, H, n = recipe.width, recipe.height, len(frames)
-    new_encoder = lambda: S.port_encoder(dev)(S.config(recipe))
-    enc = new_encoder()
-    t0 = time.perf_counter()
-    aus, counts = _launches_of(
-        K, lambda: S.code(recipe, enc, frames), f"AI {W}x{H}", INTRA)
-    wall = time.perf_counter() - t0
-    print(f"encode_stream {W}x{H} AI QP{QP}: {n} frames in {wall:.3f} s = "
-          f"{n / wall:.3f} fps; bytes {[len(a) for a in aus]}  [{CARD}]",
-          flush=True)
-    print("stage_ms per frame: " + json.dumps(
-        {k: round(v / n, 3) for k, v in enc.stage_ms.items()})
-        + f"  [{CARD}]", flush=True)
-    _decode_check(aus, n, "AI")
-    au0 = new_encoder().encode_frame(
-        [p.astype("int32") for p in frames[0]], 0)
-    if au0 != aus[0]:
-        raise AssertionError("encode_frame differs from encode_stream's AU 0")
-    print("encode_frame(frame 0) equals encode_stream AU 0", flush=True)
-    return aus, counts
-
-
-def ldp_phase(recipe, frames, dev):
-    """HM's Low Delay P Main over IDR + one GOP of four P pictures through
-    push_frame / flush (`recipe`, stream_digest's "LDP"); prints fps, the
-    P pictures' stage_ms and their device busy share.  Returns the AUs and
-    the launch counts."""
-    from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.tools import stream_digest as S
-    W, H = recipe.width, recipe.height
-    enc = S.port_encoder(dev)(S.config(recipe))
-    out = {}
-
-    def run():
-        aus, out["idr"] = _idr(lambda: S.code(recipe, enc, frames, 0, 1))
-        rest, out["wall"], out["stage"] = _timed_pictures(
-            enc, lambda: S.code(recipe, enc, frames, 1), "P pictures", 12)
-        return aus + rest
-
-    with _k1_per_plan() as k1:
-        aus, counts = _launches_of(K, run, f"LDP {W}x{H}",
-                                   [k for k in K.LAUNCHES
-                                    if k not in B_ONLY + BAND + ("me_frame",)])
-    _report(f"LDP {W}x{H} QP{QP} GOP4", len(frames) - 1, "P", out["idr"],
-            out["wall"], out["stage"], aus)
-    _picks_per_picture(counts, len(frames) - 1, "LDP")
-    _k1_once_per_plan(k1, len(frames) - 1, "LDP")
-    return aus, counts
-
-
-def ra_phase(recipe, frames, dev):
-    """HM's Random Access Main over IDR + one GOP of eight B pictures through
-    push_frame / flush (`recipe`, stream_digest's "RA"); prints fps over
-    the B pictures, their stage_ms, the number of plans enqueued ahead
-    (pictures 3, 6, 7) and the device busy share of the B pictures.  Returns the AUs and the launch counts."""
-    from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.tools import stream_digest as S
-    W, H = recipe.width, recipe.height
-    enc = S.port_encoder(dev)(S.config(recipe))
-    ahead = []
-    predispatch = enc._predispatch_ra
-
-    def counted(planes, poc, *a, **kw):
-        res = predispatch(planes, poc, *a, **kw)
-        if res is not None:
-            ahead.append(poc)
-        return res
-
-    enc._predispatch_ra = counted
-    out = {}
-
-    def run():
-        aus, out["idr"] = _idr(lambda: S.code(recipe, enc, frames, 0, 1))
-        rest, out["wall"], out["stage"] = _timed_pictures(
-            enc, lambda: S.code(recipe, enc, frames, 1), "B pictures", 14)
-        return aus + rest
-
-    with _k1_per_plan() as k1:
-        aus, counts = _launches_of(K, run, f"RA {W}x{H}",
-                                   [k for k in K.LAUNCHES if k not in BAND + (
-                                       "inter_cu_rd", "me_frame")])
-    _report(f"RA {W}x{H} QP{QP} GOP8", len(frames) - 1, "B", out["idr"],
-            out["wall"], out["stage"], aus,
-            f"; plans enqueued ahead for POCs {ahead}")
-    if sorted(ahead) != [3, 6, 7]:
-        raise AssertionError(f"RA: plans enqueued ahead for {ahead}, not for "
-                             "POCs 3, 6 and 7")
-    _picks_per_picture(counts, len(frames) - 1, "RA")
-    _k1_once_per_plan(k1, len(frames) - 1, "RA")
-    return aus, counts
-
-
-def fallback_phase(recipe, frames, dev):
-    """The per-CU inter search on an IDR and P pictures (encode_frame,
-    intra period 8, QP 32, HM16_NO_INTER_PLAN, RRSP on; `recipe`,
-    stream_digest's "per-CU search"): each P picture runs one frame ME on
-    the card (K5 in me_frame's mode) and its CU search and commit on the
-    host.  Prints s per P picture, their stage_ms, the
-    device busy share and me_frame's launches.  Returns the AUs and the
-    launch counts."""
-    from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.tools import stream_digest as S
-    W, H = recipe.width, recipe.height
-    enc = S.port_encoder(dev)(S.config(recipe))
-    out = {}
-
-    def run():
-        aus, out["idr"] = _idr(lambda: S.code(recipe, enc, frames, 0, 1))
-        rest, out["wall"], out["stage"] = _timed_pictures(
-            enc, lambda: S.code(recipe, enc, frames, 1),
-            "P pictures of the per-CU search", 10)
-        return aus + rest
-
-    with S.environ(recipe):
-        aus, counts = _launches_of(K, run, f"per-CU search {W}x{H}",
-                                   INTRA + ("me_frame",))
-    if any(counts[k] for k in PLAN_ONLY):
-        raise AssertionError("the per-CU search launched a plan kernel")
-    _report(f"per-CU search (HM16_NO_INTER_PLAN, RRSP) {W}x{H} QP{QP} IPPP",
-            len(frames) - 1, "P", out["idr"], out["wall"], out["stage"], aus,
-            f"; me_frame launches {counts['me_frame']}")
-    return aus, counts
-
-
 @contextlib.contextmanager
 def _first_plan(intra=False):
     """Inside the block, the first P/B plan (`inter_plan._plan_device`; with
     `intra`, the first I plan, `intra_rd._plan_device`) records its
-    arguments and packed plan in the yielded dict, with the unwrapped
-    function, so that it can be run again on the same inputs."""
+    arguments and packed plan in the yielded dict, with the function it
+    wraps, so that it can be run again on the same inputs."""
     from hm16_2_tpu_torch.encode import inter_plan, intra_rd
     mod = intra_rd if intra else inter_plan
     saved, seen = mod._plan_device, {"fn": mod._plan_device}
@@ -1884,277 +1576,50 @@ def _replay_held(seen, label, lam=None, pairs=None):
         _compare(f"{label} {lb}", _flat(got), _flat(want))
         n_eq += 1
 
-    t0 = time.perf_counter()
     with _held_to_plain(same, _plan_pairs() if pairs is None else pairs):
         again = seen["fn"](*a, **kw)
     if out is not None:
         _compare(f"{label} plan run again", again, out)
     at = (f"lambda {a[3]!r}, QP {kw['qp']}" if "cqp0" in kw else
           f"lambda {a[4]!r}, sqrt lambda {a[5]!r}, QP {a[6]}")
-    print(f"{label}: {at}: {n_eq} kernel outputs equal their plain versions "
-          f"({time.perf_counter() - t0:.1f} s)  [{CARD}]", flush=True)
+    print(f"{label}: {at}: {n_eq} kernel outputs equal their plain versions",
+          flush=True)
     return n_eq
 
 
-def _pinned(name, frames, aus):
-    """Hold the stream of recipe `name` to the JAX package's (stream_digest
-    PINNED): its input planes first, then each AU.  Raises at a difference,
-    naming the recipe, the first differing AU and its lengths."""
+# the plans run again with every kernel held to its plain version once
+# stream_digest has coded their recipe: (I plan?, label, lambdas), the
+# lambda None the recorded one
+REPLAYS = {"RA-Main10": ((True, "first I plan", (None,)),
+                         (False, "first B plan", (None,))),
+           # and at the ends of the model's lambda range (ratectrl's clip)
+           "RC LDP": ((False, "first P plan", (None, 0.1, 10000.0)),),
+           "RC CTU LDP": ((False, "first P plan", (None,)),)}
+
+
+@contextlib.contextmanager
+def _replays():
+    """Inside the block, stream_digest's `encode` records the first plans
+    of each recipe of REPLAYS; on leaving it, each recorded plan runs
+    again held to its plain version (`_replay_held`)."""
     from hm16_2_tpu_torch.tools import stream_digest as S
-    bad = S.mismatch(name, S.digest(frames, aus))
-    if bad:
-        raise AssertionError(f"{bad}; recipe {S.RECIPES[name]}")
-    print(f"{name}: input and stream ({len(aus)} AUs, sha256 "
-          f"{S.PINNED[name]['stream']}) equal the JAX package's (PINNED)",
-          flush=True)
+    encode, held = S.encode, []
 
+    def recorded(recipe, *a, **kw):
+        with contextlib.ExitStack() as stack:
+            for intra, label, lams in REPLAYS.get(recipe.name, ()):
+                held.append((stack.enter_context(_first_plan(intra)),
+                             f"{recipe.name} {label}", intra, lams))
+            return encode(recipe, *a, **kw)
 
-def main10_phase(dev, ai=None, ra=None):
-    """HM's All Intra Main10 over three 1080p frames (encode_stream) and
-    Random Access Main10 over IDR + one GOP of eight B pictures (push_frame
-    / flush), on 10-bit content (stream_digest's "AI-Main10" and
-    "RA-Main10", the configurations tools/encode.py builds from the Main10
-    cfg files): prints pictures/s, stage_ms and the launches per picture,
-    checks every picture hash and each stream against PINNED, and runs the
-    first 10-bit I plan and the first 10-bit B plan of RA again with every
-    kernel held to its plain version.  Returns {label: launch counts}."""
-    from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.tools import stream_digest as S
-    recipes = (ai or S.RECIPES["AI-Main10"], ra or S.RECIPES["RA-Main10"])
-    runs = {}
-    for r in recipes:
-        frames = S.make_frames(r)
-        n, label = r.frames, f"{r.name} {r.width}x{r.height}"
-        enc = S.port_encoder(dev)(S.config(r))
-        out = {}
-        if r.drive == "encode_stream":
-            need = INTRA
-
-            def run():
-                aus, out["wall"] = _idr(lambda: S.code(r, enc, frames))
-                out["stage"] = dict(enc.stage_ms)
-                return aus
-        else:
-            need = [k for k in K.LAUNCHES if k not in BAND + (
-                "inter_cu_rd", "me_frame")]
-
-            def run():
-                aus, out["idr"] = _idr(lambda: S.code(r, enc, frames, 0, 1))
-                rest, out["wall"], out["stage"] = _timed_pictures(
-                    enc, lambda: S.code(r, enc, frames, 1),
-                    f"{label} B pictures", 8)
-                return aus + rest
-
-        with _first_plan(intra=True) as first_i, _first_plan() as first_b:
-            aus, counts = _launches_of(K, run, label, need)
-        if "idr" in out:
-            _report(label, n - 1, "B", out["idr"], out["wall"],
-                    out["stage"], aus)
-        else:
-            print(f"{label}: {n} pictures in {out['wall']:.3f} s = "
-                  f"{n / out['wall']:.3f} pictures/s; bytes "
-                  f"{[len(a) for a in aus]}  [{CARD}]", flush=True)
-            print("stage_ms per picture: " + json.dumps(
-                {k: round(v / n, 3) for k, v in out["stage"].items()})
-                + f"  [{CARD}]", flush=True)
-        print(f"{label} launches per picture: " + json.dumps(
-            {k: v / n for k, v in counts.items() if v}) + f"  [{CARD}]",
-            flush=True)
-        _pinned(r.name, frames, aus)
-        if "idr" in out:
-            _replay_held(first_i, f"{label} first I plan",
-                         pairs=_intra_pairs())
-            _replay_held(first_b, f"{label} first B plan")
-        _decode_check(aus, n, label)
-        runs[label] = counts
-    return runs
-
-
-def _rc_pictures(enc):
-    """Record each picture's rate-control slice QP, lambda, target bits and
-    coded bits as the model is updated after it."""
-    rows, update = [], enc.rc.update_after_picture
-
-    def logged(actual_bits, header_bits=0):
-        p = enc.rc.pic
-        rows.append((p["qp"], p["lam"], p["target"], actual_bits))
-        return update(actual_bits, header_bits)
-
-    enc.rc.update_after_picture = logged
-    return rows
-
-
-def rc_phase(recipe, frames, dev):
-    """HM's Low Delay P Main under R-lambda rate control (`recipe`,
-    stream_digest's "RC LDP" or, at CTU level too, "RC CTU LDP") over IDR +
-    one GOP of four P pictures through push_frame / flush: the plans price
-    with the model's lambda, not one derived from the QP.  Prints each
-    picture's slice QP, lambda and bits against its target, fps and
-    stage_ms of the P pictures, holds the stream to PINNED, and holds every
-    kernel of the first P picture's plan to its plain version at that
-    lambda (at picture level also at the ends of the model's lambda range).
-    Returns the AUs and the launch counts."""
-    from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.tools import stream_digest as S
-    W, H, n = recipe.width, recipe.height, len(frames)
-    ctu = recipe.cfg.get("rc_ctu", False)
-    enc = S.port_encoder(dev)(S.config(recipe))
-    rows = _rc_pictures(enc)
-    label = f"{recipe.name} {W}x{H} {recipe.cfg['target_bps']} bps"
-    out = {}
-
-    def run():
-        aus, out["idr"] = _idr(lambda: S.code(recipe, enc, frames, 0, 1))
-        rest, out["wall"], out["stage"] = _timed_pictures(
-            enc, lambda: S.code(recipe, enc, frames, 1),
-            f"{label} P pictures", 6)
-        return aus + rest
-
-    with _k1_per_plan() as k1, _first_plan() as first:
-        aus, counts = _launches_of(K, run, label,
-                                   [k for k in K.LAUNCHES
-                                    if k not in B_ONLY + BAND + ("me_frame",)])
-    for poc, (qp, lam, target, bits) in enumerate(rows):
-        print(f"{label} POC {poc}: slice QP {qp}, lambda {lam!r}, {bits} "
-              f"bits against a target of {target}", flush=True)
-    if len(rows) != n:
-        raise AssertionError(f"{label}: {len(rows)} rate-control updates "
-                             f"for {n} pictures")
-    _report(label, n - 1, "P", out["idr"], out["wall"], out["stage"], aus)
-    _pinned(recipe.name, frames, aus)
-    _picks_per_picture(counts, n - 1, label)
-    _k1_once_per_plan(k1, n - 1, label)
-    _replay_held(first, f"{label} first P plan")
-    if not ctu:
-        # the ends of the model's lambda range (ratectrl's clip), at the
-        # first P plan's QP
-        for lam in (0.1, 10000.0):
-            _replay_held(first, f"{label} first P plan at the lambda clip",
-                         lam)
-    _decode_check(aus, n, label)
-    return aus, counts
-
-
-def _plans_per_picture(counts, n, n_inter, k1, label):
-    """delta_qp_rd runs 4 plans per picture: an AI plan is K1 once and K4
-    twice, a P plan K1 once, K4 once and the list picks once."""
-    n_intra = n - n_inter
-    want = {"plan_dp": 4 * (2 * n_intra + n_inter),
-            "ref_buffers": 4 * n, "inter_pick": 4 * n_inter}
-    got = {k: counts[k] for k in want}
-    print(f"{label}: launches {got} for {n} pictures (4 plans each)",
-          flush=True)
-    if got != want:
-        raise AssertionError(f"{label}: launches {got}, not {want}")
-    if n_inter:
-        _k1_once_per_plan(k1, 4 * n_inter, label)
-
-
-def dqp_phase(recipe, frames, dev):
-    """delta_qp_rd=1 (each picture trial-coded at QP - 1, QP, QP + 1, then
-    coded at the best; `recipe`, stream_digest's "delta_qp_rd AI", two
-    frames of HM's All Intra Main, or "delta_qp_rd LDP", Low Delay P Main
-    over IDR + one GOP of four P pictures) through push_frame / flush:
-    asserts four plans per picture by K4's and K1's launches, holds the
-    stream to PINNED, prints fps and stage_ms.  Returns the AUs and the
-    launch counts."""
-    from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.tools import stream_digest as S
-    W, H, n = recipe.width, recipe.height, len(frames)
-    intra = recipe.cfg["intra_period"] == 1
-    enc = S.port_encoder(dev)(S.config(recipe))
-    label = f"{recipe.name} {W}x{H}"
-    need = INTRA if intra else \
-        [k for k in K.LAUNCHES if k not in B_ONLY + BAND + ("me_frame",)]
-    t0 = time.perf_counter()
-    with _k1_per_plan() as k1:
-        aus, counts = _launches_of(
-            K, lambda: S.code(recipe, enc, frames), label, need)
-    wall = time.perf_counter() - t0
-    _pinned(recipe.name, frames, aus)
-    _plans_per_picture(counts, n, 0 if intra else n - 1, k1, label)
-    print(f"{label}: {n} pictures in {wall:.3f} s = {n / wall:.3f} fps; "
-          f"bytes {[len(a) for a in aus]}  [{CARD}]", flush=True)
-    print(f"{label} stage_ms per picture: " + json.dumps(
-        {k: round(v / n, 3) for k, v in enc.stage_ms.items()})
-        + f"  [{CARD}]", flush=True)
-    _decode_check(aus, n, label)
-    return aus, counts
-
-
-def _plans_per_field(counts, n, intra, k1, label):
-    """One plan per field: K1 once each; LDP's P and B fields also the list
-    picks once and K1 once in each plan."""
-    if counts["ref_buffers"] != 2 * n:
-        raise AssertionError(f"{label}: {counts['ref_buffers']} K1 "
-                             f"launches for {2 * n} fields")
-    if not intra:
-        _picks_per_picture(counts, 2 * n - 1, label)
-        _k1_once_per_plan(k1, 2 * n - 1, label)
-
-
-def field_phase(recipe, frames, dev):
-    """Field coding at 1920x1088 (544-row fields: eight 64-row CTU rows and
-    a 32-row one) through encode_stream (`recipe`, stream_digest's "field
-    AI", HM's All Intra Main over two frames (four fields), or "field LDP",
-    Low Delay P Main over three (six fields: IDR, one GOP of four P, one
-    low-delay B of the flush tail)).  Prints fps and stage_ms per field,
-    asserts one plan per field by K1's launches, holds the stream to PINNED
-    and checks every field's hash.  Returns the AUs and the launch
-    counts."""
-    from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.tools import stream_digest as S
-    W, H, n = recipe.width, recipe.height, len(frames)
-    intra = recipe.cfg["intra_period"] == 1
-    enc = S.port_encoder(dev)(S.config(recipe))
-    label = f"{recipe.name} {W}x{H}"
-    need = INTRA if intra else \
-        [k for k in K.LAUNCHES if k not in BAND + ("me_frame",)]
-    t0 = time.perf_counter()
-    with _k1_per_plan() as k1:
-        aus, counts = _launches_of(
-            K, lambda: S.code(recipe, enc, frames), label, need)
-    wall = time.perf_counter() - t0
-    _pinned(recipe.name, frames, aus)
-    _plans_per_field(counts, n, intra, k1, label)
-    print(f"{label}: {2 * n} fields of {W}x{H // 2} in {wall:.3f} s = "
-          f"{2 * n / wall:.3f} fields/s; bytes {[len(a) for a in aus]}  "
-          f"[{CARD}]", flush=True)
-    print(f"{label} stage_ms per field: " + json.dumps(
-        {k: round(v / (2 * n), 3) for k, v in enc.stage_ms.items()})
-        + f"  [{CARD}]", flush=True)
-    _decode_check(aus, 2 * n, label)
-    return aus, counts
-
-
-def small_checks(dev):
-    """The small recipes of stream_digest (136x72 and 128x128: AI, LDP, RA
-    through the fused plans; LDP under rate control at picture and CTU
-    level and RA GOP 8 under it; delta_qp_rd on AI and LDP; field coding
-    of AI and LDP at 128x128, whose 64-row fields avoid the reference's
-    fault F2; IPPP and RA through the per-CU search; AI with the intra plan
-    banded over 2 bands, whose stream shows the zero halo) on the card
-    against the same encodes on the CPU, and both against the JAX
-    package's pinned digests: a card that differs from the CPU and from
-    PINNED points at the kernels, a card and a CPU that differ from PINNED
-    together at the machine."""
-    from hm16_2_tpu_torch.tools import stream_digest as S
-    cpu = torch.device("cpu")
-    for name in S.SMALL:
-        r = S.RECIPES[name]
-        frames = S.make_frames(r)
-        on_card = S.encode(r, S.port_encoder(dev), frames, S.port_banded(dev))
-        on_cpu = S.encode(r, S.port_encoder(cpu), frames, S.port_banded(cpu))
-        card = S.mismatch(name, S.digest(frames, on_card))
-        host = S.mismatch(name, S.digest(frames, on_cpu))
-        if on_card != on_cpu or card or host:
-            raise AssertionError(
-                f"{name}: card bytes "
-                f"{'equal' if on_card == on_cpu else 'differ from'} the "
-                f"CPU's; card against PINNED: {card or 'equal'}; CPU "
-                f"against PINNED: {host or 'equal'}; recipe {r}")
-        print(f"{name}: card bytes equal the CPU plain path's and the JAX "
-              "package's (PINNED)", flush=True)
+    S.encode = recorded
+    try:
+        yield
+    finally:
+        S.encode = encode
+    for seen, label, intra, lams in held:
+        for lam in lams:
+            _replay_held(seen, label, lam, _intra_pairs() if intra else None)
 
 
 def _band_tools(dev, w, h):
@@ -2176,106 +1641,10 @@ def _band_tools(dev, w, h):
     return buf.getvalue().splitlines()
 
 
-def _band_launches(counts, out, ai, ras):
-    """The banded RA plans ran no whole-picture ME and no P kernel, each
-    took the banded ME (8 B plans), and K1's band mode is one launch per
-    band per band height's group of sizes in each I picture (1080p: s = 4
-    alone; 1024x768: every size)."""
-    from hm16_2_tpu_torch.parallel import frame_shard as F
-    if counts["inter_me"] or counts["inter_cu_rd"]:
-        raise AssertionError("the banded RA plans ran the whole-picture ME "
-                             "or a P kernel")
-    for r in ras:
-        if out[f"inter {r.name}"] != 8:
-            raise AssertionError(f"{r.name}: {out[f'inter {r.name}']} "
-                                 "banded inter plans, not 8")
-    k1_want = {f"k1 {r.name}": (r.frames if r is ai else 1) * r.bands * len(
-        F.band_groups(r.height, r.width, r.bands)) for r in (ai, *ras)}
-    got = {k: out[k] for k in k1_want}
-    print(f"K1 band launches (I pictures): {got}", flush=True)
-    if got != k1_want:
-        raise AssertionError(f"K1 band launches not one per band per group: "
-                             f"{got} against {k1_want}")
-
-
-def banded_phase(frames, xga, dev, recipes=None):
-    """The row-banded path on one card, bands on `dev` (stream_digest's
-    "banded AI": two 1080p AI frames through encode_frame with the intra
-    plan banded over 2 bands; "1024x768 banded RA 2" and "4": a 1024x768
-    RA GOP 8, IDR + 8 B, with both plans banded over 2 and 4 bands; and
-    "1024x768 RA", the same unbanded), each stream held to PINNED and
-    every picture hash_ok; each banded stream also equals the same encode
-    unbanded where PINNED says the JAX package's two streams are equal;
-    sharded_analysis_step and scaling_bench (`_band_tools`).  `frames` and
-    `xga` are the 1080p and 1024x768 contents.  Returns the launch counts
-    of the banded run."""
-    from hm16_2_tpu_torch import kernels as K
-    from hm16_2_tpu_torch.tools import stream_digest as S
-    ai, whole_ra, *ras = recipes or [S.RECIPES[n] for n in (
-        "banded AI", "1024x768 RA", "1024x768 banded RA 2",
-        "1024x768 banded RA 4")]
-    w2, h2 = whole_ra.width, whole_ra.height
-    content = {ai.name: frames[:ai.frames], whole_ra.name: xga}
-    content.update({r.name: xga for r in ras})
-
-    def code(r):
-        with S.coding(r, S.port_banded(dev)) as seen:
-            aus = S.code(r, S.port_encoder(dev)(S.config(r)), content[r.name])
-        return aus, seen
-
-    # the unbanded twins, and each banded recipe with its twin and the JAX
-    # package's stream of that twin (for the AI, the first AUs of the "AI"
-    # recipe: ai_phase holds encode_frame to encode_stream)
-    unbanded = {"ai": dataclasses.replace(ai, bands=0), "ra": whole_ra}
-    twins = [(ai, "ai", S.PINNED["AI"]["aus"][:ai.frames])]
-    twins += [(r, "ra", S.PINNED[whole_ra.name]["aus"]) for r in ras]
-    whole, secs = {}, {}
-    for key, r in unbanded.items():
-        t0 = time.perf_counter()
-        whole[key], _ = code(r)
-        torch.cuda.synchronize()
-        secs[key] = time.perf_counter() - t0
-    out = {}
-    band_k1 = lambda: K.LAUNCHES["ref_buffers_band"]
-
-    def run():
-        for r in (ai, *ras):
-            t1, k0 = time.perf_counter(), band_k1()
-            out[r.name], seen = code(r)
-            secs[r.name] = time.perf_counter() - t1
-            out[f"k1 {r.name}"] = band_k1() - k0
-            out[f"inter {r.name}"] = seen["inter"]
-        out["bench"] = _band_tools(dev, w2, h2)
-
-    _, counts = _launches_of(
-        K, run, f"banded path {ai.width}x{ai.height} AI, {w2}x{h2} RA",
-        BAND + INTRA + ("subpel_planes", "inter_uni", "inter_pick",
-                        "inter_bi_refine", "inter_cu_rd_b"))
-    for line in out["bench"]:
-        print(f"scaling_bench {line}  [{CARD}]", flush=True)
-    _band_launches(counts, out, ai, ras)
-    _pinned(whole_ra.name, xga, whole["ra"])
-    for r, twin, jax_twin in twins:
-        _pinned(r.name, content[r.name], out[r.name])
-        same = S.PINNED[r.name]["aus"] == jax_twin
-        if same and out[r.name] != whole[twin]:
-            raise AssertionError(f"{r.name}: bytes differ from the unbanded "
-                                 "encode, as the JAX package's do not")
-        print(f"{r.name} ({r.bands} bands) bytes "
-              f"{[len(a) for a in out[r.name]]} "
-              f"{'equal' if same else 'differ from'} the unbanded, as in "
-              f"the JAX package; {secs[r.name]:.3f} s (unbanded "
-              f"{secs[twin]:.3f} s)  [{CARD}]", flush=True)
-    _decode_check(out[ai.name], ai.frames,
-                  f"banded AI {ai.width}x{ai.height}")
-    _decode_check(out[ras[0].name], ras[0].frames, f"banded RA {w2}x{h2}")
-    return counts
-
-
 def cli_phase():
     """The encoder CLI on its default device (the card) with HM's Low Delay
-    P Main cfg on a 136x72 YUV; its stream must decode.  Returns the launch
-    counts."""
+    P Main cfg on a 136x72 YUV; its stream must decode hash_ok, and it
+    launches no band kernel.  Returns the launch counts."""
     from hm16_2_tpu_torch import kernels as K
     from hm16_2_tpu_torch.tools import encode as cli
     from hm16_2_tpu_torch.tools import stream_digest as S
@@ -2287,11 +1656,13 @@ def cli_phase():
         args = ["-c", os.path.join(ROOT, "cfg", "encoder_lowdelay_P_main.cfg"),
                 "-i", yuv, "-b", out, "-wdt", "136", "-hgt", "72", "-f", "5"]
         rc, counts = _launches_of(K, lambda: cli.main(args), "CLI 136x72",
-                                  INTRA + ("inter_me",))
+                                  S.INTRA + ("inter_me",))
         if rc != 0:
             raise AssertionError(f"encoder CLI exited {rc}")
         with open(out, "rb") as f:
-            _decode_check([f.read()], 5, "CLI 136x72 LDP")
+            S.decode_check("CLI 136x72 LDP", [f.read()], 5)
+    if any(counts[k] for k in S.BAND):
+        raise AssertionError("the CLI launched a band kernel")
     return counts
 
 
@@ -2303,8 +1674,10 @@ def main():
     sys.path.insert(0, ROOT)
     from hm16_2_tpu_torch import kernels as K
     from hm16_2_tpu_torch import native
+    from hm16_2_tpu_torch.tools import stream_digest as S
+    from hm16_2_tpu_torch.tools.intra_bench import card_line
 
-    CARD = _card_line()
+    CARD = card_line()
     print(CARD, flush=True)
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -2332,118 +1705,46 @@ def main():
     if native.get_lib() is None or native.get_dsp() is None:
         raise AssertionError("native commit engine did not build")
 
-    t0 = time.perf_counter()
     # the content of the 8-bit 1080p recipes (each codes a prefix of RA's)
-    from hm16_2_tpu_torch.tools import stream_digest as S
     frames = S.make_frames(S.RECIPES["RA"])
-    print(f"frames {W}x{H} made in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-
+    xga = S.make_frames(S.RECIPES["1024x768 RA"])
     dev = torch.device("cuda")
-    with _phase("kernels against plain"):
-        stats = check_kernels(frames[0], dev)
-        check_inter_kernels(frames[1:6], dev, stats=stats)
-        check_b_kernels(frames[:5], dev, stats=stats)
-        check_me_frame(frames[1:6], dev, stats=stats)
-        check_me_frame(frames[4:6], dev, stats=stats, nref=1)
-        # the row-banded kernels: K1's band mode at 1080p (s = 4, the one
-        # size the banding rule splits there), K2's analysis mode on every
-        # 1080p block, K1's (every size, one group) and K5's band modes at
-        # 1024x768 (HM class F) over 2 and 4 bands
-        check_band_kernels(frames[:1], dev, stats=stats, me=False)
-        xga = S.make_frames(S.RECIPES["1024x768 RA"])
-        check_band_kernels(xga[:5], dev, stats=stats, analysis=())
-        # K5 and K7 on the inputs their invariants rest on, and a flat
-        # 1080p
-        check_me_edges(dev)
-        # K6 and K8 likewise
-        check_k6_k8_edges(dev)
-        # K4 and K7's list picks likewise
-        check_k4_picks_edges(dev)
-        report_k6_k8(stats, torch.from_numpy(np.stack(
-            [frames[k][0] for k in (4, 3, 2, 1)]).astype("int32")).to(dev))
-        # K2 and K3 likewise, and their time by case
-        check_intra_edges(dev)
-        # K1 likewise
-        check_k1_edges(dev)
-        report_k2_k3(stats)
+    stats = check_kernels(frames[0], dev)
+    check_inter_kernels(frames[1:6], dev, stats=stats)
+    check_b_kernels(frames[:5], dev, stats=stats)
+    check_me_frame(frames[1:6], dev, stats=stats)
+    check_me_frame(frames[4:6], dev, stats=stats, nref=1)
+    # the row-banded kernels: K1's band mode at 1080p (s = 4, the one size
+    # the banding rule splits there), K2's analysis mode on every 1080p
+    # block, K1's (every size, one group) and K5's band modes at 1024x768
+    # (HM class F) over 2 and 4 bands
+    check_band_kernels(frames[:1], dev, stats=stats, me=False)
+    check_band_kernels(xga[:5], dev, stats=stats, analysis=())
+    # K5 and K7 on the inputs their invariants rest on, and a flat 1080p
+    check_me_edges(dev)
+    # K6 and K8 likewise
+    check_k6_k8_edges(dev)
+    # K4 and K7's list picks likewise
+    check_k4_picks_edges(dev)
+    report_k6_k8(stats, torch.from_numpy(np.stack(
+        [frames[k][0] for k in (4, 3, 2, 1)]).astype("int32")).to(dev))
+    # K2 and K3 likewise, and their time by case
+    check_intra_edges(dev)
+    # K1 likewise
+    check_k1_edges(dev)
+    report_k2_k3(stats)
 
-    # all-intra: warm-up frame, then a timed 3-frame encode_stream
-    from hm16_2_tpu_torch.encode.intra_rd import fetch_plan
-    warm = S.port_encoder(dev)(S.config(S.RECIPES["AI"]))
-    list(warm.encode_stream(frames[3:4]))
-    planes = [p.astype("int32") for p in frames[3]]
-    t0 = time.perf_counter()
-    for _ in range(5):
-        fetch_plan(warm._submit_plan(planes), H, W)
-    print(f"frame plan alone (upload, kernels, packed plan back): "
-          f"{(time.perf_counter() - t0) / 5 * 1e3:.3f} ms per frame  "
-          f"[{CARD}]", flush=True)
-    ai = S.RECIPES["AI"]
-    with _phase("AI"):
-        aus, ai_counts = ai_phase(ai, frames[:ai.frames], dev)
-        print(f"AI launches per frame: plan_dp "
-              f"{ai_counts['plan_dp'] / ai.frames}, ref_buffers "
-              f"{ai_counts['ref_buffers'] / ai.frames}", flush=True)
-        if (ai_counts["plan_dp"], ai_counts["ref_buffers"]) != (
-                2 * ai.frames, ai.frames):
-            raise AssertionError("AI: K4 not 2 launches per frame or K1 "
-                                 "not 1")
-        _pinned("AI", frames[:ai.frames], aus)
-
-    # low-delay P: IDR + one GOP of four P pictures
-    ldp = S.RECIPES["LDP"]
-    with _phase("LDP"):
-        ldp_aus, ldp_counts = ldp_phase(ldp, frames[:ldp.frames], dev)
-        _decode_check(ldp_aus, ldp.frames, "LDP")
-        _pinned("LDP", frames[:ldp.frames], ldp_aus)
-
-    # random access: IDR + one GOP of eight B pictures
-    ra = S.RECIPES["RA"]
-    with _phase("RA"):
-        ra_aus, ra_counts = ra_phase(ra, frames[:ra.frames], dev)
-        _decode_check(ra_aus, ra.frames, "RA")
-        _pinned("RA", frames[:ra.frames], ra_aus)
-
-    # the per-CU inter search: IDR + one P picture without a fused plan (its
-    # host search takes about a minute per 1080p P picture)
-    fb = S.RECIPES["per-CU search"]
-    with _phase("per-CU search"):
-        fb_aus, fb_counts = fallback_phase(fb, frames[:fb.frames], dev)
-        _decode_check(fb_aus, fb.frames, "per-CU search")
-        _pinned("per-CU search", frames[:fb.frames], fb_aus)
-
-    # Main10: AI and RA at 1080p on 10-bit content
-    with _phase("Main10"):
-        main10 = main10_phase(dev)
-
-    # rate control, delta_qp_rd and field coding at 1080p and 1920x1088
-    fields = S.make_frames(S.RECIPES["field LDP"])
-    new = {}
-    for phase, content, names in (
-            (rc_phase, frames, ("RC LDP", "RC CTU LDP")),
-            (dqp_phase, frames, ("delta_qp_rd AI", "delta_qp_rd LDP")),
-            (field_phase, fields, ("field AI", "field LDP"))):
-        for recipe in map(S.RECIPES.get, names):
-            with _phase(recipe.name):
-                new[recipe.name] = phase(recipe, content[:recipe.frames],
-                                         dev)[1]
-
-    with _phase("small card-against-CPU checks"):
-        small_checks(dev)
-    with _phase("CLI"):
-        cli_counts = cli_phase()
-    with _phase("banded"):
-        band_counts = banded_phase(frames, xga, dev)
-
-    unbanded = {"AI": ai_counts, "LDP": ldp_counts, "RA": ra_counts,
-                "per-CU search": fb_counts, "CLI": cli_counts, **main10,
-                **new}
-    for label, c in unbanded.items():
-        if any(c[k] for k in BAND):
-            raise AssertionError(f"{label} launched a band kernel: "
-                                 f"{[k for k in BAND if c[k]]}")
-    print("band kernels launched on the banded path only", flush=True)
+    # every pinned stream, coded once on the card: PINNED, hash_ok, EXPECT
+    with _replays():
+        runs = list(S.check(list(S.RECIPES), dev).values())
+    runs.append(cli_phase())
+    r = S.RECIPES["1024x768 RA"]
+    lines, counts = _launches_of(
+        K, lambda: _band_tools(dev, r.width, r.height),
+        "analysis step and scaling_bench", ("analysis_step", "me_frame_band"))
+    runs.append(counts)
+    for line in lines:
+        print(f"scaling_bench {line}  [{CARD}]", flush=True)
 
     loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
               or m == "hm16_2_tpu" or m.startswith("hm16_2_tpu.")]
@@ -2451,14 +1752,9 @@ def main():
         raise AssertionError(f"modules of jax or the JAX package loaded: "
                              f"{loaded[:5]}")
     print("neither jax nor the JAX package imported", flush=True)
-    print("seconds by phase: " + json.dumps(
-        {k: round(v, 1) for k, v in PHASE_S.items()}) + f"  [{CARD}]",
-        flush=True)
     print(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s  [{CARD}]",
           flush=True)
 
-    runs = (ai_counts, ldp_counts, ra_counts, fb_counts, band_counts,
-            *main10.values(), *new.values())
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"hm16_2_tpu_torch/csrc/{SOURCES[k][0]}",

@@ -31,6 +31,8 @@ KERNEL_NAMES = ("size_rd_kernel", "cand_rd_kernel", "analysis_kernel")
 
 
 def card_line():
+    """The card's name and power limit from nvidia-smi: the one line that
+    this tool, plan_bench.py, stream_digest.py and chip_smoke.py print."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60)

@@ -1,4 +1,5 @@
-"""The streams whose bytes are pinned, and their SHA-256.
+"""The streams whose bytes are pinned, their SHA-256, and the one check
+that holds the port's streams on the card to them.
 
 `RECIPES` defines every checked stream once: its content
 (`make_yuv(width, height, frames, seed=, bits=, chroma=)`), its
@@ -6,16 +7,18 @@
 `push_frame` / `flush`, or `encode_frame`), the environment switches
 it runs under and the number of row bands its plans are banded over
 (`bands`; `encode` enters the caller's `banded(bands)` around the
-coding).  `LARGE` are the streams that chip_smoke.py's timed phases
-encode on the card: 1080p AI, LDP, RA, the per-CU search, Main10 AI and
+coding).  `LARGE` are 1080p AI, LDP, RA, the per-CU search, Main10 AI and
 RA (whose configurations are what `tools/encode.py` builds from
 `cfg/encoder_intra_main10.cfg` and `cfg/encoder_randomaccess_main10.cfg`
 at `-wdt 1920 -hgt 1080 -q 32`), rate control at picture and CTU level,
 `delta_qp_rd`, field coding at 1920x1088, and the row-banded encoder
 (1080p AI over 2 bands; 1024x768 RA unbanded and over 2 and 4 bands).
-`SMALL` are those of chip_smoke.small_checks, among them a 136x72 AI
-banded over 2 bands, whose stream shows the zero halo of the banded intra
-RD (it differs from the unbanded stream of the same content).
+`SMALL` are the streams of at most 264x264 that `check` also codes on
+the CPU, among them a 136x72 AI banded over 2 bands, whose stream shows
+the zero halo of the banded intra RD (it differs from the unbanded stream
+of the same content).  `EXPECT` holds, beside each recipe, what its coding
+launches on a CUDA device (`kernels.LAUNCHES`) and what `check` sees of
+it besides its bytes; `expect` reads it.
 
 `PINNED` holds, for each recipe, the SHA-256 of its input planes (int32,
 little-endian, frame by frame in plane order), the SHA-256 and length of
@@ -27,15 +30,12 @@ through the JAX twin of `banded` there).
     python3 hm16_2_tpu_torch/tools/stream_digest.py [--root DIR]
     python3 hm16_2_tpu_torch/tools/stream_digest.py --check [NAME ...]
 
-Without --check: encodes the LARGE recipes on the card with the
-`hm16_2_tpu_torch` of the checkout DIR (default: the one holding this
-file), so that two trees unpacked side by side are held to the same bytes
-in one call, and prints the card's name and power limit, a line per
-stream (pictures, bytes, digest; for push_frame recipes also the
-`stage_ms` per picture after the IDR) and one JSON object.  With --check:
-encodes the named recipes (default: all) on the card, prints for each
-whether its input and stream equal `PINNED` or the first differing access
-unit, and exits non-zero if any differed.
+Runs `check` on the card with the `hm16_2_tpu_torch` of the checkout DIR
+(default: the one holding this file), so that a tree unpacked beside this
+one is held to the same bytes and launches: the named recipes with
+--check (default: all), the LARGE recipes without it.  Prints the card's
+name and power limit, then a line per recipe; raises at the first recipe
+that fails.
 """
 
 from __future__ import annotations
@@ -45,7 +45,6 @@ import contextlib
 import copy
 import dataclasses
 import hashlib
-import json
 import os
 import sys
 
@@ -103,7 +102,7 @@ RC_1080 = dict(LD, target_bps=4_000_000, frame_rate=30, total_frames=5)
 XGA = 1024, 768
 
 RECIPES = {r.name: r for r in (
-    # large: chip_smoke.py's timed phases
+    # large
     Recipe("AI", W, H, 3, AI, "encode_stream"),
     Recipe("LDP", W, H, 5, LD, "push_frame"),
     Recipe("RA", W, H, 9, RA, "push_frame"),
@@ -131,7 +130,7 @@ RECIPES = {r.name: r for r in (
     Recipe("1024x768 RA", *XGA, 9, RA, "push_frame"),
     Recipe("1024x768 banded RA 2", *XGA, 9, RA, "push_frame", bands=2),
     Recipe("1024x768 banded RA 4", *XGA, 9, RA, "push_frame", bands=4),
-    # small: chip_smoke.small_checks, card against CPU
+    # small: the card's bytes also equal the CPU's
     Recipe("136x72 AI", 136, 72, 3, AI, "encode_stream"),
     Recipe("136x72 LDP", 136, 72, 5, LD, "push_frame"),
     Recipe("136x72 RA", 136, 72, 9, RA, "push_frame"),
@@ -160,6 +159,101 @@ RECIPES = {r.name: r for r in (
 )}
 SMALL = [n for n, r in RECIPES.items() if r.width <= 264]
 LARGE = [n for n in RECIPES if n not in SMALL]
+
+# the kernels of kernels.LAUNCHES by the plans that launch them
+INTRA = ("ref_buffers", "intra_size_rd", "intra_cand_rd", "plan_dp")
+UNI = ("subpel_planes", "inter_uni", "inter_pick")      # K6, K7's uni modes
+B_ONLY = ("inter_bi_refine", "inter_cu_rd_b")
+PLAN_ONLY = ("inter_me",) + UNI + ("inter_cu_rd",) + B_ONLY
+P_PLAN = INTRA + ("inter_me",) + UNI + ("inter_cu_rd",)
+B_PLAN = INTRA + ("inter_me",) + UNI + B_ONLY
+BAND = ("ref_buffers_band", "inter_me_band", "me_frame_band",
+        "analysis_step")                    # the kernels of parallel/ only
+PICKS = (("inter_pick", 0, 1),)             # one list pick per P/B plan
+
+
+@dataclasses.dataclass(frozen=True)
+class Expect:
+    """What coding a recipe launches on a CUDA device, and what `check`
+    sees of it besides its bytes."""
+    need: tuple = ()            # kernels that launch at least once
+    idle: tuple = ()            # kernels that never launch (an unbanded
+                                # recipe also launches none of BAND)
+    per_picture: tuple = ()     # (kernel, launches per I, per P/B picture)
+    k1_per_plan: bool = False   # K1 once in each P/B plan
+    ahead: tuple = ()           # the POCs whose RA plans go ahead
+    rc: bool = False            # one rate-control update per picture
+    banded: bool = False        # K1's band mode once per band per band
+                                # height in each I picture, the banded ME
+                                # in each P/B plan
+    twin: str = ""              # the unbanded recipe whose first AUs the
+                                # stream equals where PINNED says so
+    frame0: bool = False        # encode_frame of frame 0 writes AU 0
+
+
+BANDED_RA = Expect(INTRA + ("ref_buffers_band", "inter_me_band") + UNI
+                   + B_ONLY, idle=("inter_me", "inter_cu_rd"), banded=True,
+                   twin="1024x768 RA")
+RC_LDP = Expect(P_PLAN, per_picture=PICKS, k1_per_plan=True, rc=True)
+EXPECT = {
+    "AI": Expect(INTRA, per_picture=(("plan_dp", 2, 0), ("ref_buffers", 1, 0)),
+                 frame0=True),
+    "LDP": Expect(P_PLAN, per_picture=PICKS, k1_per_plan=True),
+    "RA": Expect(B_PLAN, per_picture=PICKS, k1_per_plan=True,
+                 ahead=(3, 6, 7)),
+    "per-CU search": Expect(INTRA + ("me_frame",), idle=PLAN_ONLY),
+    "AI-Main10": Expect(INTRA),
+    "RA-Main10": Expect(B_PLAN),
+    "RC LDP": RC_LDP,
+    "RC CTU LDP": RC_LDP,
+    # four plans per picture (QP - 1, QP, QP + 1, the best)
+    "delta_qp_rd AI": Expect(INTRA, per_picture=(
+        ("plan_dp", 8, 0), ("ref_buffers", 4, 0), ("inter_pick", 0, 4))),
+    "delta_qp_rd LDP": Expect(P_PLAN, per_picture=(
+        ("plan_dp", 8, 4), ("ref_buffers", 4, 4), ("inter_pick", 0, 4)),
+        k1_per_plan=True),
+    # pictures are fields
+    "field AI": Expect(INTRA, per_picture=(("ref_buffers", 1, 0),)),
+    "field LDP": Expect(P_PLAN + B_ONLY, per_picture=(
+        ("ref_buffers", 1, 1), ("inter_pick", 0, 1)), k1_per_plan=True),
+    "banded AI": Expect(INTRA + ("ref_buffers_band",), banded=True,
+                        twin="AI"),
+    "1024x768 RA": Expect(),
+    "1024x768 banded RA 2": BANDED_RA,
+    "1024x768 banded RA 4": BANDED_RA,
+    # the small recipes: held to the CPU's bytes instead
+    **dict.fromkeys(SMALL, Expect()),
+}
+
+
+def expect(recipe, counts, pictures):
+    """Hold what coding `recipe` into `pictures` pictures launched on a
+    CUDA device to EXPECT: `counts` is kernels.LAUNCHES with `check`'s
+    "k1 per plan", "ahead", "rc updates" and "banded inter".  Raises an
+    AssertionError naming the recipe and every expectation it missed."""
+    e, cfg = EXPECT[recipe.name], recipe.cfg
+    period = cfg["intra_period"]
+    n_i = pictures if period == 1 else \
+        len(range(0, recipe.frames, period or recipe.frames))
+    n_p = pictures - n_i
+    want = {k: i * n_i + p * n_p for k, i, p in e.per_picture}
+    want.update(dict.fromkeys(e.idle + (() if recipe.bands else BAND), 0))
+    if e.k1_per_plan:
+        want["k1 per plan"] = [1] * n_p * (4 if cfg.get("delta_qp_rd") else 1)
+    if e.ahead:
+        want["ahead"] = list(e.ahead)
+    if e.rc:
+        want["rc updates"] = pictures
+    if e.banded:
+        from hm16_2_tpu_torch.parallel.frame_shard import band_groups
+        want["ref_buffers_band"] = n_i * recipe.bands * len(band_groups(
+            recipe.height, recipe.width, recipe.bands))
+        want["banded inter"] = n_p
+    bad = [f"{k} {counts[k]}, not {v}" for k, v in want.items()
+           if counts[k] != v]
+    bad += [f"{k} never launched" for k in e.need if not counts[k]]
+    if bad:
+        raise AssertionError(f"{recipe.name}: " + "; ".join(bad))
 
 
 def make_frames(recipe, n=None):
@@ -317,59 +411,145 @@ def mismatch(name, got):
             f"{got['stream']}, pinned {want['stream']}")
 
 
+def decode_check(label, aus, pictures):
+    """Decode the stream with the port's decoder; raises unless it holds
+    `pictures` pictures, each of them hash_ok."""
+    from hm16_2_tpu_torch.decode.top import Decoder
+    ok = [p.hash_ok for p in Decoder().decode_stream(b"".join(aus))]
+    if ok != [True] * pictures:
+        raise AssertionError(f"{label}: decoded {len(ok)} pictures of "
+                             f"{pictures}, hash_ok {ok}")
+
+
+@contextlib.contextmanager
+def _watched(dev):
+    """(make_encoder, banded, seen) for `encode` on `dev`: inside the
+    block, `seen` gathers K1's launches in each P/B plan, the POCs whose
+    RA plans are enqueued ahead, the rate-control updates and the plans
+    that took the banded ME."""
+    from hm16_2_tpu_torch import kernels as K
+    from hm16_2_tpu_torch.encode import inter_plan as P
+    seen = {"k1 per plan": [], "ahead": [], "rc updates": 0,
+            "banded inter": 0}
+    plan_device = P._plan_device
+
+    def plan(*a, **kw):
+        k1 = K.LAUNCHES["ref_buffers"]
+        out = plan_device(*a, **kw)
+        seen["k1 per plan"].append(K.LAUNCHES["ref_buffers"] - k1)
+        return out
+
+    def make_encoder(kw):
+        enc = port_encoder(dev)(kw)
+        predispatch = enc._predispatch_ra
+
+        def ahead(planes, poc, *a, **kw):
+            res = predispatch(planes, poc, *a, **kw)
+            if res is not None:
+                seen["ahead"].append(poc)
+            return res
+
+        enc._predispatch_ra = ahead
+        if enc.rc is not None:
+            update = enc.rc.update_after_picture
+
+            def updated(*a, **kw):
+                seen["rc updates"] += 1
+                return update(*a, **kw)
+
+            enc.rc.update_after_picture = updated
+        return enc
+
+    @contextlib.contextmanager
+    def banded(n):
+        with port_banded(dev)(n) as b:
+            yield b
+        seen["banded inter"] += b["inter"]
+
+    P._plan_device = plan
+    try:
+        yield make_encoder, banded, seen
+    finally:
+        P._plan_device = plan_device
+
+
+def check(names, dev):
+    """Code each named recipe once on `dev` through `encode` and hold it
+    to PINNED (its input planes, each AU, the stream; the first differing
+    AU named), decode every picture hash_ok with the port's decoder, and on
+    a CUDA device hold its launches to EXPECT (`expect`) and a SMALL
+    recipe's bytes to the CPU's; a recipe with a twin also equals the
+    twin's bytes of this call where PINNED says the JAX package's two
+    streams are equal.  Prints a line per recipe and raises at the first
+    that fails.  Returns {name: its launch counts and `_watched`'s}."""
+    import torch
+    from hm16_2_tpu_torch import kernels as K
+    cuda = dev.type == "cuda"
+    coded, out = {}, {}
+    for name in names:
+        r, e = RECIPES[name], EXPECT[name]
+        frames = make_frames(r)
+        K.reset_launches()
+        with _watched(dev) as (make_encoder, banded, seen):
+            aus = encode(r, make_encoder, frames, banded)
+        out[name] = counts = {**K.LAUNCHES, **seen,
+                              "ahead": sorted(seen["ahead"])}
+        coded[name] = aus
+        got = digest(frames, aus)
+        bad = mismatch(name, got)
+        if bad:
+            raise AssertionError(f"{bad}; recipe {r}")
+        decode_check(name, aus, len(aus))
+        notes = [f"{len(aus)} pictures hash_ok"]
+        if cuda:
+            expect(r, counts, len(aus))
+            notes.append("launches as expected")
+        if e.frame0:
+            planes = [np.ascontiguousarray(p, dtype=np.int32)
+                      for p in frames[0]]
+            if port_encoder(dev)(config(r)).encode_frame(planes, 0) \
+                    != aus[0]:
+                raise AssertionError(f"{name}: encode_frame of frame 0 "
+                                     "differs from AU 0")
+            notes.append("encode_frame writes AU 0")
+        if e.twin in coded:
+            n = len(aus)
+            same = PINNED[name]["aus"] == PINNED[e.twin]["aus"][:n]
+            if same and aus != coded[e.twin][:n]:
+                raise AssertionError(f"{name}: bytes differ from {e.twin}'s, "
+                                     "as the JAX package's do not")
+            notes.append(f"{'equal to' if same else 'unlike'} {e.twin}'s "
+                         "bytes, as in the JAX package")
+        if cuda and name in SMALL:
+            cpu = torch.device("cpu")
+            on_cpu = encode(r, port_encoder(cpu), frames, port_banded(cpu))
+            if on_cpu != aus:
+                raise AssertionError(
+                    f"{name}: card bytes differ from the CPU's; CPU "
+                    f"against PINNED: "
+                    f"{mismatch(name, digest(frames, on_cpu)) or 'equal'}")
+            notes.append("equal to the CPU's bytes")
+        print(f"{name} {r.width}x{r.height}: {len(aus)} AUs, "
+              f"{sum(map(len, aus))} bytes, input and stream equal PINNED; "
+              + "; ".join(notes), flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=REPO,
                     help="checkout whose hm16_2_tpu_torch encodes")
-    ap.add_argument("--label", default="")
     ap.add_argument("--check", nargs="*", metavar="NAME",
-                    help="hold these recipes (default: all) to PINNED")
+                    help="check these recipes (default: all)")
     args = ap.parse_args(argv)
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
+    sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("stream_digest: no CUDA device")
-    sys.path.insert(1, HERE)
-    from intra_bench import card_line
-    card = card_line()
-    label = args.label or root
-    print(card, flush=True)
-    names = (args.check or list(RECIPES)) if args.check is not None \
-        else LARGE
-    dev = torch.device("cuda")
-    res = {}
-    for name in names:
-        r = RECIPES[name]
-        frames = make_frames(r)
-        stage = None
-        with coding(r, port_banded(dev)):
-            enc = port_encoder(dev)(config(r))
-            if r.drive == "push_frame":
-                aus = code(r, enc, frames, 0, 1)
-                before = dict(enc.stage_ms)
-                aus += code(r, enc, frames, 1)
-                stage = {k: (v - before.get(k, 0.0)) / (r.frames - 1)
-                         for k, v in enc.stage_ms.items()}
-            else:
-                aus = code(r, enc, frames)
-        got = digest(frames, aus)
-        res[name] = {"pictures": len(aus), "bytes": sum(map(len, aus)),
-                     "sha256": got["stream"], "stage_ms": stage}
-        print(f"{label}: {name} {r.width}x{r.height}: {len(aus)} AUs, "
-              f"{res[name]['bytes']} bytes, sha256 {got['stream']}"
-              + (f"; stage_ms per picture after the IDR "
-                 f"{json.dumps(stage)}" if stage else "") + f"  [{card}]",
-              flush=True)
-        if args.check is not None:
-            res[name]["pinned"] = bad = mismatch(name, got)
-            print(f"{name}: {bad or 'input and stream equal PINNED'}",
-                  flush=True)
-    print(json.dumps({"root": label, "card": card, "streams": res}),
-          flush=True)
-    failed = [n for n, v in res.items() if v.get("pinned")]
-    if failed:
-        raise SystemExit(f"stream_digest: {failed} differ from PINNED")
+    from hm16_2_tpu_torch.tools.intra_bench import card_line
+    print(card_line(), flush=True)
+    check((args.check or list(RECIPES)) if args.check is not None else LARGE,
+          torch.device("cuda"))
 
 
 # The JAX package's streams (hm16_2_tpu.encode.top on the CPU), made under

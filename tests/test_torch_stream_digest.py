@@ -1,9 +1,10 @@
 """The pinned stream digests (hm16_2_tpu_torch/tools/stream_digest.py)
-against the JAX package, and the recipes against what chip_smoke.py runs.
+against the JAX package, and the check that holds the card's streams to
+them.
 
 `PINNED` holds the SHA-256 of the JAX package's stream of every recipe;
-chip_smoke.py and `stream_digest.py --check` hold the card's streams to
-them, since the card's machine has no JAX.  The `slow` cases reproduce
+`stream_digest.check` (`stream_digest.py --check`, and chip_smoke.py)
+holds the card's streams to them, since the card's machine has no JAX.  The `slow` cases reproduce
 every entry from the JAX package on the CPU:
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_stream_digest.py -m slow
@@ -19,18 +20,24 @@ streams of the port's CPU path (among them the banded 136x72 AI, over two
 CPU bands) and that the banded 136x72 AI differs from its unbanded
 stream; the other small recipes are held to the JAX package by the
 same-bytes tests of test_torch_encode*.py as well.  Only `-m slow`
-reproduces the large recipes and the other small ones.  That
-chip_smoke.py codes the recipes is test_torch_chip_smoke_recipes.py.
+reproduces the large recipes and the other small ones.  The check itself
+runs here on the CPU at 64x64, with PINNED replaced by the CPU's own
+digests: it codes each large recipe once, through `encode`, and fails,
+naming the recipe, on a wrong launch count, a corrupted AU or a picture
+whose hash does not match.
 """
 
 import contextlib
 import dataclasses
 import os
+import types
 
 import pytest
 import torch
 
 from hm16_2_tpu.encode import top as RT
+from hm16_2_tpu_torch import kernels as K
+from hm16_2_tpu_torch.decode import top as DT
 from hm16_2_tpu_torch.encode.top import EncoderConfig
 from hm16_2_tpu_torch.tools import stream_digest as S
 
@@ -156,3 +163,84 @@ def test_cli_derives_main10_recipes(name, cfg, monkeypatch):
                   "-b", "out.bin", "-wdt", "1920", "-hgt", "1080", "-q", "32",
                   "-f", str(r.frames), "--Device", "cpu"])
     assert vars(built.value.args[0]) == vars(EncoderConfig(**S.config(r)))
+
+
+# the large recipes in three groups: 1080p AI, LDP, RA, the per-CU search
+# and Main10; rate control, delta_qp_rd and field coding; the banded
+# recipes with the unbanded 1024x768 RA
+GROUPS = {"first": S.LARGE[:6], "later": S.LARGE[6:12],
+          "banded": S.LARGE[12:]}
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_check_codes_each_recipe_once(group, monkeypatch):
+    """`check` on the CPU at 64x64 (fields 64x128), PINNED replaced by the
+    CPU's own digests: it codes each recipe of the group once, through
+    `encode`, holds those bytes and decodes every picture hash_ok."""
+    names, pinned, coded = GROUPS[group], {}, []
+    encode = S.encode
+
+    def recorded(r, *a):
+        aus = encode(r, *a)
+        coded.append(r.name)
+        pinned[r.name] = S.digest(a[1], aus)
+        return aus
+
+    monkeypatch.setattr(S, "encode", recorded)
+    monkeypatch.setattr(S, "PINNED", pinned)
+    for n in names:
+        r = S.RECIPES[n]
+        monkeypatch.setitem(S.RECIPES, n, dataclasses.replace(
+            r, width=64, height=128 if r.cfg.get("field_coding") else 64))
+    assert list(S.check(names, CPU)) == names
+    assert coded == names
+
+
+def test_every_recipe_has_expectations():
+    """EXPECT has an entry for each recipe, naming only kernels of
+    kernels.LAUNCHES and, as twins, unbanded recipes coded before it."""
+    assert set(S.EXPECT) == set(S.RECIPES)
+    order = list(S.RECIPES)
+    for name, e in S.EXPECT.items():
+        kernels = e.need + e.idle + tuple(k for k, _, _ in e.per_picture)
+        assert set(kernels) <= set(K.LAUNCHES), name
+        if e.twin:
+            assert S.RECIPES[e.twin].bands == 0, name
+            assert order.index(e.twin) < order.index(name), name
+
+
+@pytest.mark.parametrize("fault", ["launches", "au", "hash"])
+def test_check_names_the_failing_recipe(fault, monkeypatch):
+    """A wrong launch count fails `expect`, and a corrupted AU or a picture
+    whose hash does not match fails `check`, each naming the recipe."""
+    if fault == "launches":
+        # 1080p AI's three pictures on the card
+        r, counts = S.RECIPES["AI"], dict.fromkeys(K.LAUNCHES, 0)
+        counts.update({"intra_size_rd": 12, "intra_cand_rd": 9, "plan_dp": 6,
+                       "ref_buffers": 3, "k1 per plan": [], "ahead": [],
+                       "rc updates": 0, "banded inter": 0})
+        S.expect(r, counts, 3)
+        counts["plan_dp"] = 5
+        with pytest.raises(AssertionError, match="^AI: plan_dp 5, not 6$"):
+            S.expect(r, counts, 3)
+        return
+    if fault == "au":
+        encode = S.encode
+
+        def corrupted(r, *a):
+            aus = encode(r, *a)
+            return aus[:1] + [aus[1][:-1] + bytes([aus[1][-1] ^ 1])] + aus[2:]
+
+        monkeypatch.setattr(S, "encode", corrupted)
+        match = "^136x72 AI: .*first differing AU 1"
+    else:
+        class Decoder:
+            def decode_stream(self, data):
+                return [types.SimpleNamespace(hash_ok=k != 2)
+                        for k in range(3)]
+
+        monkeypatch.setattr(DT, "Decoder", Decoder)
+        match = r"^136x72 AI: decoded 3 pictures of 3, hash_ok \[True, " \
+            r"True, False\]"
+    with pytest.raises(AssertionError, match=match):
+        S.check(["136x72 AI"], CPU)
