@@ -8,17 +8,24 @@ AMVP, the CU's field writes and `dsp_core`'s `inter_commit_cu`.  It is the
 native twin of `CtuSearch._commit_plan_tree` -> `_commit_planned_inter` /
 `_commit_planned_rect` -> `MvPredictor` and gives the same bytes.
 
-`commit_ctu(search, cx, cy)` is tried for every CTU of a picture with an
-inter plan; a planned intra CU is committed by the host's
-`CtuSearch._commit_cu` (or `_commit_nxn`) through a callback, in its z-order
-place.  It engages only where the native inter commit engine does
-(`CtuSearch._inter_ctx()`: no weighted prediction, 4:0:0 or 4:2:0, no
-cu_qp_delta, no scaling lists, no transquant bypass, at most 8 references,
-HM16_NO_COMMIT_ENGINE unset) and the host mapping has no variant switched on
-(HM16_KIND_RD, HM16_RERANK_LUMA_ONLY).  A CTU holding an uncovered area,
-a reference index out of range or a CU without a compensable candidate is
-handed back untouched, and the caller commits it as before.  Slices and
-tiles take the decoder's availability rules.
+`commit_frame(search, pic)` walks every CTU of a P or B picture with an
+inter plan as a CTU wavefront over the host's cores (`native/intra_wave.cpp`'s
+scheduler: CTU (x, y) once row y - 1 has finished x + 2 CTUs), where the
+picture is one slice and one tile; the caller commits from the first CTU
+it handed back on, in raster order.  `commit_ctu(search, cx, cy)` is the
+walk of one CTU, tried for every CTU the wavefront did not commit.  A
+planned intra CU is committed by the host's `CtuSearch._commit_cu` (or
+`_commit_nxn`) through a callback, in its z-order place, one at a time and
+from whichever thread walks its CTU.  The walk engages only where the
+native inter commit engine does (`CtuSearch._inter_ctx()`: no weighted
+prediction, 4:0:0 or 4:2:0, no cu_qp_delta, no scaling lists, no
+transquant bypass, at most 8 references, HM16_NO_COMMIT_ENGINE unset) and
+the host mapping has no variant switched on (HM16_KIND_RD,
+HM16_RERANK_LUMA_ONLY).  A CTU holding an uncovered area, a reference
+index out of range or a CU without a compensable candidate is handed back
+untouched, and the caller commits it as before.  Slices and tiles take the
+decoder's availability rules.  Either way the bytes are those of the
+raster walk.
 """
 
 from __future__ import annotations
@@ -66,7 +73,9 @@ class WalkCtx(ctypes.Structure):
         (n, _P) for n in (
             "p_cov", "p_pred_inter", "p_skip_hint", "p_depth", "p_part",
             "p_dir", "p_mv", "p_ref", "p_pu", "ictx", "cand_sse",
-            "commit_cu", "host_cu")]
+            "commit_cu", "host_cu")] + [
+        ("lam", ctypes.c_double), ("cu_qp", _I), ("ctu_cus", _P),
+        ("ctu_host_cus", _P)]
 
 HOST_CU = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int)
@@ -86,7 +95,8 @@ def get_lib():
             tmp = f"{_SO}.{os.getpid()}.tmp"
             subprocess.run(
                 ["g++", "-O3", "-march=native", "-ffp-contract=off",
-                 "-funroll-loops", "-shared", "-fPIC", "-o", tmp, _SRC],
+                 "-funroll-loops", "-pthread", "-shared", "-fPIC", "-o",
+                 tmp, _SRC],
                 check=True, capture_output=True)
             os.replace(tmp, _SO)
         lib = ctypes.CDLL(_SO)
@@ -101,6 +111,8 @@ def get_lib():
     lib.iw_commit_ctu.argtypes = [ctx, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_double, ctypes.c_int]
     lib.iw_commit_ctu.restype = ctypes.c_int
+    lib.iw_wave_ctu.argtypes = [_P, ctypes.c_int, ctypes.c_int]
+    lib.iw_wave_ctu.restype = ctypes.c_int
     lib.iw_merge_list.argtypes = [ctx] + [ctypes.c_int] * 6 + [_P]
     lib.iw_merge_list.restype = ctypes.c_int
     lib.iw_amvp_list.argtypes = [ctx] + [ctypes.c_int] * 6 + [_P]
@@ -255,18 +267,20 @@ def _plan_context(search):
     C.cand_sse = ctypes.cast(dsp.ic_cand_sse, _P).value
     C.commit_cu = ctypes.cast(dsp.inter_commit_cu, _P).value
     ref = weakref.ref(search)        # the context is kept on the search
-    C.intra_cus = 0
-    host = HOST_CU(lambda px, py, log2: _commit_intra(ref(), C, px, py,
-                                                      log2))
+    host = HOST_CU(lambda px, py, log2: _commit_intra(ref(), px, py, log2))
     keep.append(host)
     C.host_cu = ctypes.cast(host, _P).value
+    C.cus_of_ctu = np.zeros(pic.w_ctbs * pic.h_ctbs, np.int32)
+    C.host_cus_of_ctu = np.zeros_like(C.cus_of_ctu)
+    C.ctu_cus = _ptr(C.cus_of_ctu, np.int32, keep)
+    C.ctu_host_cus = _ptr(C.host_cus_of_ctu, np.int32, keep)
     return C
 
 
-def _commit_intra(search, ctx, px, py, log2):
+def _commit_intra(search, px, py, log2):
     """A planned intra CU inside the walk, committed as _commit_plan_tree
-    does and counted in ctx.intra_cus: 0, or -1 (the walk then hands its
-    CTU back, and the host commits the CTU again and meets what failed)."""
+    does: 0, or -1 (the walk then hands its CTU back, and the host commits
+    the CTU again and meets what failed)."""
     try:
         plan = search.plan
         if log2 == 3 and plan.nxn[py, px]:
@@ -276,30 +290,76 @@ def _commit_intra(search, ctx, px, py, log2):
                               tusplit=bool(plan.tusplit[py, px]))
     except Exception:
         return -1
-    ctx.intra_cus += 1
     return 0
+
+
+def _context(search):
+    """The walk's context for the search's plan (made once a plan), or
+    None where the walk does not engage."""
+    got = getattr(search, "_iwalk", None)
+    if got is None or got[0] is not search.plan:
+        got = search._iwalk = (search.plan, _plan_context(search))
+    return got[1]
+
+
+def commit_frame(search, pic, nthreads=None):
+    """Walks the CTUs of the search's inter plan as a CTU wavefront on
+    `nthreads` threads (default `intra_wave.threads` of the CTU grid):
+    what `intra_wave_commit` returns, 0 or 1 + the raster index k of the
+    first CTU handed back (the CTUs from k on are left as the raster walk
+    leaves them, for the caller to commit from k), or None where the
+    wavefront does not engage (no context; several slices or tiles;
+    cu_qp_delta; one thread; the scheduler does not load) and the caller
+    commits every CTU."""
+    ctx = _context(search)
+    if ctx is None or len(pic.slices) != 1 or \
+            len(pic.tiles.col_bounds) != 2 or \
+            len(pic.tiles.row_bounds) != 2 or \
+            search.pps.cu_qp_delta_enabled:
+        return None
+    from hm16_2_tpu_torch.encode import intra_wave
+    wc, hc = pic.w_ctbs, pic.h_ctbs
+    n = intra_wave.threads(wc, hc) if nthreads is None else nthreads
+    wave = intra_wave.get_lib() if n > 1 else None
+    tr = _trace.ON
+    if wave is None:
+        tr and _trace.count("commit.wave_threads", 1)
+        return None
+    ctx.lam, ctx.cu_qp = float(search.lam), int(search.cur_qp)
+    s = tr and _trace.open("commit.recon", key="inter_walk")
+    waited = ctypes.c_int64(0)
+    rc = wave.intra_wave_commit(
+        ctypes.addressof(ctx), ctypes.cast(_lib.iw_wave_ctu, _P).value,
+        wc, hc, n, pic.coded.ctypes.data, pic.pw, pic.ctb // 4,
+        ctypes.byref(waited))
+    if s:
+        k = wc * hc if rc == 0 else rc - 1
+        _trace.close(s, "commit.native_cus", int(ctx.cus_of_ctu[:k].sum()))
+        host = int(ctx.host_cus_of_ctu[:k].sum())
+        host and _trace.count("commit.python_cus", host)
+        k and _trace.count("commit.walk_ctus", k)
+        _trace.count("commit.wave_threads", n)
+        _trace.count("commit.wave_ctus", k)
+        _trace.count("commit.wave_wait_ms", round(waited.value / 1e6))
+    return rc
 
 
 def commit_ctu(search, cx, cy):
     """Commits CTU (cx, cy) of the search's inter plan natively: True, or
     False when the walk does not engage or hands the CTU back as it found
     it (the caller then commits it)."""
-    got = getattr(search, "_iwalk", None)
-    if got is None or got[0] is not search.plan:
-        got = search._iwalk = (search.plan, _plan_context(search))
-    ctx = got[1]
+    ctx = _context(search)
     if ctx is None:
         return False
     s = _trace.ON and _trace.open("commit.recon", key="inter_walk")
-    ctx.intra_cus = 0
     n = _lib.iw_commit_ctu(ctypes.byref(ctx), cx, cy, float(search.lam),
                            int(search.cur_qp))
     if n < 0:
         s and _trace.close(s, "commit.native_refused_ctus")
         return False
     s and _trace.close(s, "commit.native_cus", n)
-    s and ctx.intra_cus and _trace.count("commit.python_cus",
-                                         ctx.intra_cus)
+    host = int(ctx.host_cus_of_ctu[cy * ctx.w_ctbs + cx])
+    s and host and _trace.count("commit.python_cus", host)
     s and _trace.count("commit.walk_ctus")
     return True
 

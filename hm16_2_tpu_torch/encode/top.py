@@ -1295,6 +1295,16 @@ class Encoder:
                 start_ts = n_ctus if rc == 0 else rc - 1
                 recon and _trace.close(recon, "commit.native_cus",
                                        _trace.cus_in_ts(pic, start_ts))
+        elif search.plan is not None and aq_off is None and \
+                not byte_mode and \
+                getattr(search.plan, "is_inter_plan", False) and \
+                (self.rc is None or not self.rc.lcu_rc):
+            # the inter plan's native walk as a CTU wavefront over the
+            # host's cores; None: every CTU commits below
+            from hm16_2_tpu_torch.encode import inter_walk
+            walked = inter_walk.commit_frame(search, pic)
+            if walked is not None:
+                start_ts = n_ctus if walked == 0 else walked - 1
         slice_of_ts = np.zeros(n_ctus, dtype=np.int32)
         for i, (ts0, ts1) in enumerate(slice_bounds):
             slice_of_ts[ts0:ts1] = i

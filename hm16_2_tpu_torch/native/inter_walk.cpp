@@ -18,11 +18,26 @@
 // part arrays and planes are restored from a snapshot taken before the
 // walk.
 //
-// Build: g++ -O3 -march=native -ffp-contract=off -shared -fPIC (the flags
-// of dsp_core.cpp, so float64 rounds the same way).
+// iw_wave_ctu is the walk of one CTU as native/intra_wave.cpp's wavefront
+// calls it, on several threads at once.  What makes that safe: a CTU reads
+// only its left, above-left, above and above-right neighbours (motion
+// fields, `coded` flags, reconstructed samples, each through available(),
+// which checks `coded`), the colocated picture and the reference planes,
+// all complete before it starts; cand_sse's temporary motion goes into the
+// PU-origin part of the CTU's own CU; the snapshot and dsp_core's scratch
+// (ic_cand_sse, inter_commit_cu, the RDOQ and bit-count helpers, whose
+// counts start from the fixed slice-init contexts) are thread_local; the
+// context's fields are only read, and of ctu_cus and ctu_host_cus a CTU
+// writes its own entries.  The host's commit of a planned intra CU runs
+// Python on shared state (the search's scratch, the tracer's stack), so
+// host_cu calls are serialised; the other threads go on walking meanwhile.
+//
+// Build: g++ -O3 -march=native -ffp-contract=off -pthread -shared -fPIC
+// (the flags of dsp_core.cpp, so float64 rounds the same way).
 
 #include <cstdint>
 #include <cstring>
+#include <mutex>
 #include <vector>
 
 namespace {
@@ -99,6 +114,14 @@ struct WalkCtx {
   const void *commit_cu;
   // the host's commit of a planned intra CU (px, py, log2): 0, or -1
   const void *host_cu;
+  // the rerank's lambda and the CUs' QP for iw_wave_ctu
+  double lam;
+  int32_t cu_qp;
+  // per CTU in raster order, written by its walk when it is not handed
+  // back (null: not kept): the inter CUs it committed, and the planned
+  // intra CUs host_cu committed in it
+  int32_t *ctu_cus;
+  int32_t *ctu_host_cus;
 };
 
 }  // extern "C"
@@ -115,8 +138,11 @@ struct Walk {
   const WalkCtx *C;
   double lam;
   int qp;
-  int cus;
+  int cus;        // inter CUs committed
+  int host_cus;   // planned intra CUs host_cu committed
 };
+
+std::mutex host_mu;   // one host_cu call at a time
 
 inline int64_t part_at(const WalkCtx *C, int px, int py) {
   return (int64_t)py * C->parts_w + px;
@@ -902,7 +928,10 @@ int walk(Walk &W, int px, int py, int log2) {
     if (!C->p_pred_inter[plan_at(C, px, py)]) {
       // a planned intra CU: the host commits it, in its z-order place
       if (!C->host_cu) return -1;
-      return ((host_cu_fn)C->host_cu)(px, py, log2) == 0 ? 0 : -1;
+      std::lock_guard<std::mutex> lock(host_mu);
+      if (((host_cu_fn)C->host_cu)(px, py, log2) != 0) return -1;
+      W.host_cus++;
+      return 0;
     }
     int part = C->p_part[plan_at(C, px, py)];
     int rc = part == 1 || part == 2 ? commit_rect(W, px, py, log2, part)
@@ -999,7 +1028,7 @@ extern "C" {
 // .cur_qp).
 int iw_commit_ctu(const WalkCtx *C, int cx, int cy, double lam, int qp) {
   if (!C->p_cov || !C->ictx || !C->cand_sse || !C->commit_cu) return -1;
-  Walk W{C, lam, qp, 0};
+  Walk W{C, lam, qp, 0, 0};
   int parts = 1 << (C->log2_ctb - 2);
   static thread_local std::vector<uint8_t> snap;
   Region r[48];
@@ -1009,7 +1038,18 @@ int iw_commit_ctu(const WalkCtx *C, int cx, int cy, double lam, int qp) {
     load(r, n, snap);
     return -1;
   }
+  int64_t idx = (int64_t)cy * C->w_ctbs + cx;
+  if (C->ctu_cus) C->ctu_cus[idx] = W.cus;
+  if (C->ctu_host_cus) C->ctu_host_cus[idx] = W.host_cus;
   return W.cus;
+}
+
+// CTU (cx, cy) as native/intra_wave.cpp's intra_wave_commit calls it
+// (ctx: a WalkCtx): iw_commit_ctu with the context's lam and cu_qp; 0, or -1
+// when the CTU was handed back as it was found.
+int iw_wave_ctu(const void *ctx, int cx, int cy) {
+  const WalkCtx *C = (const WalkCtx *)ctx;
+  return iw_commit_ctu(C, cx, cy, C->lam, C->cu_qp) < 0 ? -1 : 0;
 }
 
 // MvPredictor.merge_candidates(x, y, w, h, pu_idx, part_size, ...)

@@ -31,7 +31,8 @@ for, and its parent (the span open when it began; None for a root):
                      merge and AMVP lists (its self time; its
                      reconstruction is a commit.recon inside it)
       commit.recon   reconstruction of planned CUs: the native intra walk,
-                     the native inter walk of a CTU (`encode/inter_walk.py`,
+                     the native inter walk of a CTU or, as a CTU
+                     wavefront, of a picture (`encode/inter_walk.py`,
                      key "inter_walk": lists, rerank, fields and residual
                      in one C call), `inter_commit_cu`, or their Python
                      fallbacks
@@ -59,11 +60,15 @@ equals its stage to the nanosecond.  Counters are integers under (name, POC):
     commit.native_refused_ctus             CTUs a native walk handed back
     commit.walk_ctus                       CTUs the native inter walk
                                            committed
-    commit.wave_threads                    threads the native intra walk
-                                           of a planned I picture ran
-                                           with (`encode/intra_wave.py`);
-                                           1 when serial
-    commit.wave_ctus                       CTUs its wavefront committed
+    commit.wave_threads                    threads a picture's native
+                                           walk ran with as a CTU
+                                           wavefront: a planned I
+                                           picture's intra walk
+                                           (`encode/intra_wave.py`) or a
+                                           P/B picture's inter walk
+                                           (`inter_walk.commit_frame`); 1
+                                           when serial
+    commit.wave_ctus                       CTUs the wavefront committed
     commit.wave_wait_ms                    summed ms its workers waited on
                                            the CTU row above
     emit.native_ctus, emit.python_ctus     CTUs by the syntax writer used

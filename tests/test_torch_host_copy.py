@@ -7,9 +7,10 @@ path under `hm16_2_tpu_torch/`.  Each copy equals its reference after the
 import rewrite `hm16_2_tpu.` -> `hm16_2_tpu_torch.`; the encoder top level,
 the encoder CLI and the BD-rate harness differ only inside the named blocks
 that point them at the port's device code (and, in the encoder top level,
-at the port's native inter walk and its CTU wavefront of the intra walk,
-whose bytes `stream_digest.PINNED`, tests/test_torch_inter_walk.py and
-tests/test_torch_intra_wave.py hold).  The encoder top level also
+at the port's native inter walk and the CTU wavefronts of the intra and
+inter walks, whose bytes `stream_digest.PINNED`,
+tests/test_torch_inter_walk.py, tests/test_torch_intra_wave.py and
+tests/test_torch_inter_wave.py hold).  The encoder top level also
 holds the tracer's statements (`trace.py`), which are taken out before it
 is compared; the native loader and commit engine differ only where the
 loader records why a library did not load and the engine's debug prints
@@ -195,10 +196,12 @@ def test_copy_differs_only_in_named_blocks(path):
     pipelined RA plans, the fallback's frame ME and 35-mode analysis, the
     stage clock `_tick` that ends the tracer's stage spans, the call of
     the native inter walk `encode/inter_walk.py` in `decide_ctu`, the
-    planned I picture's walk as a CTU wavefront `encode/intra_wave.py`),
-    once its tracer statements are out, the encoder CLI (its Device option) and the
-    BD-rate harness (its encode arm's device and Device option) differ from
-    the reference only in their named blocks."""
+    planned I picture's walk as a CTU wavefront `encode/intra_wave.py`
+    and the P/B picture's as one `inter_walk.commit_frame`, in one
+    block), once its tracer statements are out, the encoder CLI (its
+    Device option) and the BD-rate harness (its encode arm's device and
+    Device option) differ from the reference only in their named
+    blocks."""
     ref = _cut(_rewrite(_read(os.path.join("hm16_2_tpu", path))), NAMED[path])
     got = _read(os.path.join("hm16_2_tpu_torch", path))
     if path in TRACED:

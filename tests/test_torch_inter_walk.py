@@ -43,12 +43,14 @@ PINS = {"ra": "136x72 RA", "ldp": "136x72 LDP"}
 
 def _encode(case, walk=True):
     """The AUs of a case, and the encoder; walk=False commits every CTU
-    through the host mapping."""
+    through the host mapping (neither the wavefront nor the per-CTU walk
+    engages)."""
     kw, w, h, n = CASES[case]
     enc = Encoder(EncoderConfig(w, h, **kw), CPU)
-    saved = inter_walk.commit_ctu
+    saved = inter_walk.commit_ctu, inter_walk.commit_frame
     if not walk:
         inter_walk.commit_ctu = lambda *a: False
+        inter_walk.commit_frame = lambda *a, **k: None
     try:
         aus = []
         for poc, f in enumerate(make_yuv(w, h, n, seed=42)):
@@ -56,30 +58,42 @@ def _encode(case, walk=True):
                 [np.ascontiguousarray(p, dtype=np.int32) for p in f], poc)
         aus += enc.flush()
     finally:
-        inter_walk.commit_ctu = saved
+        inter_walk.commit_ctu, inter_walk.commit_frame = saved
     return aus
 
 
 @pytest.fixture(scope="module")
 def walked():
     """{case: (AUs, trace record, rect CUs the walk committed, inter POCs)}
-    with the walk on and the tracer recording."""
+    with the walk on (its wavefront where the grid has two CTU rows and
+    columns, the per-CTU walk elsewhere) and the tracer recording."""
     out = {}
-    saved = inter_walk.commit_ctu
+    saved = inter_walk.commit_ctu, inter_walk.commit_frame
     for case in CASES:
         rects, pocs = [0], set()
 
+        def count_rects(pic, cx, cy):
+            c = pic.ctb // 4
+            ps = pic.part_size[cy * c:(cy + 1) * c, cx * c:(cx + 1) * c]
+            rects[0] += int(np.isin(ps, (1, 2)).sum())
+
         def commit(search, cx, cy):
             pocs.add(search.sh.poc)
-            if not saved(search, cx, cy):
+            if not saved[0](search, cx, cy):
                 return False
-            c = search.pic.ctb // 4
-            ps = search.pic.part_size[cy * c:(cy + 1) * c,
-                                      cx * c:(cx + 1) * c]
-            rects[0] += int(np.isin(ps, (1, 2)).sum())
+            count_rects(search.pic, cx, cy)
             return True
 
-        inter_walk.commit_ctu = commit
+        def frame(search, pic, nthreads=None):
+            rc = saved[1](search, pic, nthreads)
+            if rc is not None:
+                pocs.add(search.sh.poc)
+                for idx in range(pic.w_ctbs * pic.h_ctbs
+                                 if rc == 0 else rc - 1):
+                    count_rects(pic, idx % pic.w_ctbs, idx // pic.w_ctbs)
+            return rc
+
+        inter_walk.commit_ctu, inter_walk.commit_frame = commit, frame
         trace.disable()
         trace.drain()
         trace.enable()
@@ -87,7 +101,7 @@ def walked():
             aus = _encode(case)
         finally:
             trace.disable()
-            inter_walk.commit_ctu = saved
+            inter_walk.commit_ctu, inter_walk.commit_frame = saved
         out[case] = (aus, trace.drain(), rects[0], pocs)
     return out
 
@@ -314,7 +328,9 @@ def test_unsignalled_motion_is_handed_back(monkeypatch):
 def test_hand_back_after_writing_restores_the_ctu(host, monkeypatch):
     """A walk whose residual step fails after the first CU it committed
     restores the CTU's fields and planes; the host then codes the same
-    bytes."""
+    bytes.  (Every CTU takes the per-CTU walk here; the wavefront's
+    hand-backs are in tests/test_torch_inter_wave.py.)"""
+    monkeypatch.setattr(inter_walk, "commit_frame", lambda *a, **k: None)
     saved = inter_walk.commit_ctu
     handed = []
 
